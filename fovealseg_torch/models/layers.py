@@ -1,0 +1,109 @@
+"""Shared building blocks (counterpart of ``fovealseg_tpu/models/layers.py``).
+
+Modules run NCHW. Parameters stay f32 (so state dicts match the JAX export
+one for one); each layer computes in the ``dtype`` it was built with, as the
+JAX modules' ``dtype`` does: a conv or linear layer casts its input and its
+weights to that type, and BatchNorm normalizes in f32 and returns that type.
+Under ``torch.no_grad`` the cast weights are cached until the parameter
+changes. BN follows SyncBN eval semantics: eps 1e-5, running statistics.
+
+Init mirrors the JAX package: Kaiming-normal (fan_in) conv and linear
+weights, zero biases, BN scale 1 and bias 1e-4.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class _CastCache:
+    """Weights in the layer's compute dtype, cached while gradients are off."""
+
+    def _cast_param(self, name: str, p: torch.Tensor | None):
+        if p is None or p.dtype == self.compute_dtype:
+            return p
+        if torch.is_grad_enabled():
+            return p.to(self.compute_dtype)
+        cache = self.__dict__.setdefault("_cast", {})
+        key = (p.data_ptr(), p._version, p.device)
+        hit = cache.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, p.detach().to(self.compute_dtype))
+            cache[name] = hit
+        return hit[1]
+
+
+class Conv2d(_CastCache, nn.Conv2d):
+    """torch ``nn.Conv2d`` (symmetric padding) computing in ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 padding: int = 0, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel_size, stride, padding, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return self._conv_forward(x.to(self.compute_dtype),
+                                  self._cast_param("weight", self.weight),
+                                  self._cast_param("bias", self.bias))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """SyncBN-semantics BN (eps 1e-5, torch momentum 0.1 == flax 0.9);
+    normalizes in f32 and returns ``dtype``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return super().forward(x).to(self.compute_dtype)
+
+
+class Linear(_CastCache, nn.Linear):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.compute_dtype), self._cast_param("weight", self.weight),
+                        self._cast_param("bias", self.bias))
+
+
+def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
+           use_bias: bool = True, dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size, stride, padding, use_bias, dtype)
+
+
+def batch_norm(channels: int, dtype: torch.dtype = torch.float32) -> BatchNorm2d:
+    return BatchNorm2d(channels, dtype)
+
+
+def linear(cin: int, cout: int, dtype: torch.dtype = torch.float32) -> Linear:
+    return Linear(cin, cout, dtype)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded init mirroring the JAX package's initializers."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            w = torch.randn(m.weight.shape, generator=generator, dtype=torch.float32)
+            m.weight.copy_(w * math.sqrt(2.0 / fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.weight.fill_(1.0)
+            m.bias.fill_(1e-4)
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()
+    return module
