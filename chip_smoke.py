@@ -7,14 +7,23 @@ Phases (any failure exits non-zero):
      from ``fovealseg_torch/csrc`` with nvcc (one process per source, started
      together) and their ``-Xptxas -v`` reports;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, bit-equal, with CUDA-event times;
-  3. the main path at full flagship width (HRNetV2-nodownsp + C1, 640x640
-     canvas -> 80x80 task, 51 classes, random weights from a seed): the
-     serving CLI's entry point at b8, then ``infer(argmax_labels=True)`` at
-     b8 and b1 in float32 and bfloat16, with every kernel's launch count read
-     from this window only; the output of a served batch is recomputed on the
-     host through the plain versions and must be bit-equal; a small input is
-     held against the same weights on the host;
+     shapes the main path gives it, bit-equal, with CUDA-event times, the
+     byte bound and, where one PyTorch call computes the same function, that
+     call's time;
+  3. the main paths at full flagship width (HRNetV2-nodownsp + C1, 640x640
+     canvas -> 80x80 task, 51 classes, random weights from a seed), each with
+     every kernel's launch count set to 0 just before it and read just after:
+     a. argmax serving: the serving CLI's entry point at b8, then
+        ``infer(argmax_labels=True)`` at b8 and b1 in float32 and bfloat16;
+        a served batch is recomputed on the host through the plain versions
+        and must be bit-equal; a small input is held against the same
+        weights on the host;
+     b. score maps and round trips: ``infer(argmax_labels=False)`` at b8 and
+        b1 in float32 and bfloat16, one b8 call with the label and image
+        round trips, one b2 call with ``rev_deform_interp='BI'`` and one b8
+        call with ``TPU.jfa_iters=10``; two frames of a served score map are
+        recomputed on the host through the plain versions and must be
+        bit-equal; a small input is held against the host;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -29,6 +38,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SEED = 304
+CANVAS = 640
 
 
 def log(*a):
@@ -65,7 +75,7 @@ def setup():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("card:", card)
     t = time.perf_counter()
-    reports = build.build(["jfa"])
+    reports = build.build(["jfa", "gather"])
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
     for name, rep in reports.items():
         for line in rep.strip().splitlines():
@@ -73,14 +83,15 @@ def setup():
     return card
 
 
-def flagship(dtype, device):
+def flagship(dtype, device, **overrides):
     import torch
 
     from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
     from fovealseg_torch.models.layers import init_weights
 
     cfg = DeformConfig(task_hw=(80, 80), task_hw_infer=(80, 80), saliency_hw=(80, 80),
-                       gaussian_radius=45, num_class=51, arch_encoder="hrnetv2_nodownsp")
+                       gaussian_radius=45, num_class=51, arch_encoder="hrnetv2_nodownsp",
+                       **overrides)
     model = DeformSegmentation(cfg, dtype=dtype, device=device)
     return init_weights(model, torch.Generator().manual_seed(SEED))
 
@@ -95,21 +106,87 @@ def frames(batch: int, canvas: int, seed: int, device):
     return torch.from_numpy(x).to(device), torch.from_numpy(f).to(device)
 
 
+def labels(batch: int, canvas: int, seed: int, device, block: int = 32):
+    """Label maps of random classes in block x block squares, so that the
+    label round trip keeps most of them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 51, (batch, -(-canvas // block), -(-canvas // block)))
+    y = cells.repeat(block, axis=1).repeat(block, axis=2)[:, :canvas, :canvas]
+    return torch.from_numpy(np.ascontiguousarray(y, dtype=np.int32)).to(device)
+
+
+def counters():
+    from fovealseg_torch.ops import gather, jfa
+
+    return {"jfa_class": jfa.nearest_class, "jfa_relpay": jfa.nearest_payload_packed,
+            "jfa_payload": jfa.nearest_payload, "jfa_seed": jfa.nearest_seed,
+            "row_gather": gather.row_gather}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    import torch
+
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def check_counts(label, counts, expected):
+    log(f"launches in {label}: {json.dumps(counts)}")
+    if counts != expected:
+        raise AssertionError(f"{label}: expected launches {expected}, counted {counts}")
+
+
+def hold(name, label, kernel, plain, bound_ms, library=None, n=20):
+    """Run ``kernel`` and ``plain`` once, require bit-equal outputs, then
+    time both (and ``library`` when given). Returns the numbers."""
+    import torch
+
+    k_out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    torch.cuda.synchronize()
+    if k_out.shape != ref.shape or k_out.dtype != ref.dtype:
+        raise AssertionError(f"{name} [{label}]: {tuple(k_out.shape)} {k_out.dtype} != "
+                             f"plain {tuple(ref.shape)} {ref.dtype}")
+    bits = torch.int32 if k_out.element_size() == 4 else k_out.dtype
+    if not torch.equal(k_out.view(bits), ref.view(bits)):
+        raise AssertionError(f"{name} kernel != plain on {label}: "
+                             f"{(k_out != ref).sum().item()} elements differ")
+    del k_out, ref
+    err = 0.0  # bit-equal, so every element's difference is 0
+    ms = cuda_time(kernel, n)
+    plain_ms = cuda_time(plain, n, warmup=1)
+    library_ms = cuda_time(library, n) if library is not None else None
+    log(f"{name} [{label}]: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        + (f"library {library_ms:.4f} ms, " if library_ms is not None else "")
+        + f"bound {bound_ms:.4f} ms (bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
+                max_abs_err=err, bit_equal=True)
+
+
 def check_jfa(model, device):
-    """Phase 2: the class-mode jump flood against its plain version."""
+    """Phase 2: the class-mode jump flood (K1) against its plain version."""
     import torch
 
     from fovealseg_torch.core.unwarp import argmax_landing_seeds, jfa_rounds_from_grid
     from fovealseg_torch.ops.jfa import full_rounds, nearest_class, nearest_class_plain
 
-    x, f = frames(8, 640, SEED, device)
+    x, f = frames(8, CANVAS, SEED, device)
     out = model.infer(x, f, argmax_labels=True)
-    seg_hw = (640, 640)
+    seg_hw = (CANVAS, CANVAS)
     valid, cls, cls_bits = argmax_landing_seeds(out["pred"].float(), out["grid"], seg_hw)
     rounds = jfa_rounds_from_grid(out["grid"], seg_hw)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    sparse = torch.rand((8, 640, 640), generator=gen) > 0.995
-    non_square = torch.rand((8, 480, 640), generator=gen) > 0.99
+    sparse = torch.rand((8, CANVAS, CANVAS), generator=gen) > 0.995
+    non_square = torch.rand((8, 480, CANVAS), generator=gen) > 0.99
     cases = [
         ("flagship landing scatter, runtime rounds", valid, cls, rounds),
         ("random sparse, full rounds", sparse.to(device),
@@ -117,45 +194,226 @@ def check_jfa(model, device):
         ("non-square 480x640, full rounds", non_square.to(device),
          torch.randint(0, 51, non_square.shape, generator=gen, dtype=torch.int32).to(device), None),
     ]
-    result, max_abs_err = None, 0
+    result = None
     for label, v, p, r in cases:
-        k_out = nearest_class(v, p, cls_bits, r)
-        torch.cuda.synchronize()
-        ref = nearest_class_plain(v, p, cls_bits, r)
-        torch.cuda.synchronize()
-        max_abs_err = max(max_abs_err, int((k_out - ref).abs().max()))
-        if not torch.equal(k_out, ref):
-            raise AssertionError(f"jfa kernel != plain on {label}: "
-                                 f"{(k_out != ref).sum().item()} pixels differ")
-        ms = cuda_time(lambda: nearest_class(v, p, cls_bits, r), 20)
-        plain_ms = cuda_time(lambda: nearest_class_plain(v, p, cls_bits, r), 20, warmup=1)
         b, h, w = v.shape
-        bound_ms = b * h * w * (1 + 4 + 4) / HBM_BYTES_PER_S * 1e3
         n_rounds = int(r) if r is not None else full_rounds(h, w)
-        log(f"jfa_class [{label}] {tuple(v.shape)} rounds={n_rounds}: bit-equal; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)")
+        res = hold("jfa_class", f"{label} {tuple(v.shape)} rounds={n_rounds}",
+                   lambda: nearest_class(v, p, cls_bits, r),
+                   lambda: nearest_class_plain(v, p, cls_bits, r),
+                   b * h * w * (1 + 4 + 4) / HBM_BYTES_PER_S * 1e3)
         if result is None:  # the main path's own shapes and data
-            result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, rounds=n_rounds)
-    result["max_abs_err"] = max_abs_err
+            result = dict(res, rounds=n_rounds)
+        result["max_abs_err"] = max(result["max_abs_err"], res["max_abs_err"])
     return result
 
 
-def time_serving(model, device):
-    """b8 fps and b1 latency of infer(argmax_labels=True), CUDA-event timed."""
+def check_new_kernels(model, device):
+    """Phase 2: K2-K5 against their plain versions on the flagship's own
+    inverse-warp inputs (b8, 640x640, 80x80 task, 51 classes)."""
     import torch
 
-    x8, f8 = frames(8, 640, SEED + 1, device)
-    x1, f1 = frames(1, 640, SEED + 2, device)
-    b8_ms = cuda_time(lambda: model.infer(x8, f8, argmax_labels=True), 10, warmup=2)
-    b1_ms = cuda_time(lambda: model.infer(x1, f1, argmax_labels=True), 20, warmup=2)
+    from fovealseg_torch.core.grid import grid_from_index, inverse_grid_index
+    from fovealseg_torch.core.unwarp import halfpixel_avg, jfa_rounds_from_grid
+    from fovealseg_torch.ops import gather, jfa
+
+    x, f = frames(8, CANVAS, SEED + 5, device)
+    out = model.infer(x, f, argmax_labels=True)
+    seg_hw = (CANVAS, CANVAS)
+    task_idx, valid = inverse_grid_index(out["grid"], seg_hw)
+    rounds = jfa_rounds_from_grid(out["grid"], seg_hw)
+    b, h, w = valid.shape
+    th, tw = out["pred"].shape[1:3]
+    pay_bits = (th * tw - 1).bit_length()
+    px = b * h * w
+    full = jfa.full_rounds(h, w)
+    res = {}
+    n_rounds = int(rounds)
+    res["jfa_relpay"] = dict(hold(
+        "jfa_relpay", f"flagship inverse_grid_index, runtime rounds={n_rounds}",
+        lambda: jfa.nearest_payload_packed(valid, task_idx, pay_bits, rounds),
+        lambda: jfa.nearest_payload_packed_plain(valid, task_idx, pay_bits, rounds),
+        px * (1 + 4 + 4) / HBM_BYTES_PER_S * 1e3), rounds=n_rounds)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    sparse = (torch.rand((b, h, w), generator=gen) > 0.995).to(device)
+    wide = torch.randint(0, 2**30, sparse.shape, generator=gen, dtype=torch.int32).to(device)
+    k3_sparse = hold("jfa_payload", f"random sparse, 30-bit payload, full rounds={full}",
+                     lambda: jfa.nearest_payload(sparse, wide, None),
+                     lambda: jfa.nearest_payload_plain(sparse, wide, None),
+                     px * (1 + 4 + 4) / HBM_BYTES_PER_S * 1e3)
+    res["jfa_payload"] = dict(hold(
+        "jfa_payload", f"flagship inverse_grid_index, full rounds={full}",
+        lambda: jfa.nearest_payload(valid, task_idx, None),
+        lambda: jfa.nearest_payload_plain(valid, task_idx, None),
+        px * (1 + 4 + 4) / HBM_BYTES_PER_S * 1e3), rounds=full)
+    res["jfa_payload"]["max_abs_err"] = max(res["jfa_payload"]["max_abs_err"],
+                                            k3_sparse["max_abs_err"])
+    res["jfa_seed"] = dict(hold(
+        "jfa_seed", f"flagship landing mask, full rounds={full}",
+        lambda: jfa.nearest_seed(valid, None), lambda: jfa.nearest_seed_plain(valid, None),
+        px * (1 + 4) / HBM_BYTES_PER_S * 1e3), rounds=full)
+
+    tidx = jfa.nearest_payload_packed(valid, task_idx, pay_bits, rounds)
+    seeds = jfa.nearest_seed(valid, None)
+    p2 = halfpixel_avg(out["pred"].float()).reshape(b, -1, 51).contiguous()
+    grid_inv = grid_from_index(task_idx, valid, (th, tw))
+    grid_inv = torch.where(torch.isnan(grid_inv), 0.0, grid_inv).reshape(b, h * w, 2)
+    y_task = torch.randint(0, 51, (b, p2.shape[1], 1), generator=gen, dtype=torch.int32).to(device)
+    cases = [(f"score map {list(p2.shape)} at K2's output", p2, tidx),
+             (f"labels int32 {list(y_task.shape)} at K2's output", y_task, tidx),
+             (f"filled grid {list(grid_inv.shape)} at K4's output", grid_inv.contiguous(),
+              seeds.reshape(b, h * w))]
+    for label, table, idx in cases:
+        t_rows, c = table.shape[1], table.shape[2]
+        flat = (idx.reshape(b, -1).long().clamp(0, t_rows - 1)
+                + torch.arange(b, device=device).view(b, 1) * t_rows).reshape(-1)
+        table2 = table.reshape(-1, c)
+        r = hold("row_gather", label, lambda: gather.row_gather(table, idx),
+                 lambda: gather.row_gather_plain(table, idx),
+                 (idx.numel() * c * 4 + idx.numel() * 4 + table.numel() * 4)
+                 / HBM_BYTES_PER_S * 1e3,
+                 library=lambda: torch.index_select(table2, 0, flat))
+        if "row_gather" not in res:  # the score map: the main path's largest gather
+            res["row_gather"] = r
+        res["row_gather"]["max_abs_err"] = max(res["row_gather"]["max_abs_err"], r["max_abs_err"])
+    return res
+
+
+def time_infer(model, device, **kw):
+    """b8 fps and b1 latency of ``infer(**kw)``, CUDA-event timed, and b1 on
+    the host clock. Returns the numbers and the count of calls made."""
+    import torch
+
+    x8, f8 = frames(8, CANVAS, SEED + 1, device)
+    x1, f1 = frames(1, CANVAS, SEED + 2, device)
+    b8_ms = cuda_time(lambda: model.infer(x8, f8, **kw), 10, warmup=2)
+    b1_ms = cuda_time(lambda: model.infer(x1, f1, **kw), 20, warmup=2)
     host = []
     for _ in range(10):
         t = time.perf_counter()
-        model.infer(x1, f1, argmax_labels=True)
+        model.infer(x1, f1, **kw)
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t) * 1e3)
     return dict(b8_ms=b8_ms, b8_fps=8 / (b8_ms / 1e3), b1_ms=b1_ms,
-                b1_host_ms=statistics.median(host), calls=2 + 10 + 2 + 20 + 10)
+                b1_host_ms=statistics.median(host)), 2 + 10 + 2 + 20 + 10
+
+
+def argmax_path(model32, model16, device):
+    """Phase 3a: argmax serving through the CLI and ``infer``."""
+    import torch
+
+    from fovealseg_torch.cli import infer as cli
+    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_argmax_scatter
+
+    reset_counts()
+    calls = 0
+    t = time.perf_counter()
+    cli.main(["--cfg", "fovealseg_torch/configs/deform.yaml", "--batch", "8", "--num-batches", "3",
+              "MODEL.gaussian_radius", "45", "TRAIN.saliency_input_size", "(80,80)",
+              "TRAIN.task_input_size", "(80,80)", "TPU.compute_dtype", "bfloat16"])
+    calls += 3
+    log(f"cli served 3 b8 batches in {time.perf_counter() - t:.1f} s (model build included)")
+    x, f = frames(8, CANVAS, SEED + 3, device)
+    served = model32.infer(x, f, argmax_labels=True)
+    calls += 1
+    timings = {}
+    for name, model in (("float32", model32), ("bfloat16", model16)):
+        tm, n = time_infer(model, device, argmax_labels=True)
+        timings[name] = tm
+        calls += n
+        log(f"serving {name}: b8 {tm['b8_ms']:.3f} ms/batch = {tm['b8_fps']:.1f} fps; "
+            f"b1 {tm['b1_ms']:.3f} ms (events), {tm['b1_host_ms']:.3f} ms (host clock)")
+    counts = read_counts()
+    check_counts("the argmax path", counts, {**dict.fromkeys(counts, 0), "jfa_class": calls})
+
+    label, pred, grid = served["pred_label"], served["pred"], served["grid"]
+    if label.shape != (8, CANVAS, CANVAS) or label.dtype != torch.int32:
+        raise AssertionError(f"pred_label {tuple(label.shape)} {label.dtype}")
+    if int(label.min()) < 0 or int(label.max()) >= 51:
+        raise AssertionError("pred_label outside [0, 51)")
+    if not torch.isfinite(pred).all():
+        raise AssertionError("non-finite logits")
+    rounds = jfa_rounds_from_grid(grid, (CANVAS, CANVAS))
+    host = unwarp_argmax_scatter(pred.cpu(), grid.cpu(), (CANVAS, CANVAS), rounds=rounds.cpu())
+    if not torch.equal(host, label.cpu()):
+        raise AssertionError("served pred_label != host recompute through the plain jump flood")
+    log(f"served pred_label bit-equal to the host recompute (rounds={int(rounds)})")
+    return timings, counts
+
+
+def scoremap_path(model32, model16, device):
+    """Phase 3b: score maps, the round trips, 'BI' and a fixed round count."""
+    import torch
+
+    from fovealseg_torch.core.grid import inverse_grid_index
+    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_prediction_fast
+
+    model_bi = flagship(torch.float32, device, rev_deform_interp="BI")
+    model_r10 = flagship(torch.float32, device, jfa_iters=10)
+    for m in (model_bi, model_r10):
+        m.load_state_dict(model32.state_dict())
+    x, f = frames(8, CANVAS, SEED + 7, device)
+    y = labels(8, CANVAS, SEED + 8, device)
+    seg = CANVAS * CANVAS
+
+    reset_counts()
+    expected = dict.fromkeys(counters(), 0)
+    timings = {}
+    for name, model in (("float32", model32), ("bfloat16", model16)):
+        tm, n = time_infer(model, device)
+        timings[name] = tm
+        expected["jfa_relpay"] += n
+        expected["row_gather"] += n
+        log(f"score map {name}: b8 {tm['b8_ms']:.3f} ms/batch = {tm['b8_fps']:.1f} fps; "
+            f"b1 {tm['b1_ms']:.3f} ms (events), {tm['b1_host_ms']:.3f} ms (host clock)")
+    served = model32.infer(x, f)
+    expected["jfa_relpay"] += 1
+    expected["row_gather"] += 1
+    trips = model32.infer(x, f, y=y, y_sampled_reverse=True, x_sampled_reverse=True)
+    expected["jfa_relpay"] += 2  # score map, label round trip
+    expected["jfa_seed"] += 1  # image round trip
+    expected["row_gather"] += 3
+    bi = model_bi.infer(x[:2], f[:2])
+    expected["jfa_seed"] += 1
+    expected["row_gather"] += 1
+    r10 = model_r10.infer(x, f)
+    expected["jfa_payload"] += 1  # 10 rounds > 7: K2's fallback
+    expected["row_gather"] += 1
+    counts = read_counts()
+    check_counts("the score-map path", counts, expected)
+
+    checks = {}
+    for label, out, shape in (("pred_sampled", served["pred_sampled"], (8, CANVAS, CANVAS, 51)),
+                              ("y_sampled_reverse", trips["y_sampled_reverse"],
+                               (8, CANVAS, CANVAS)),
+                              ("x_sampled_reverse", trips["x_sampled_reverse"],
+                               (8, CANVAS, CANVAS, 3)),
+                              ("BI pred_sampled", bi["pred_sampled"], (2, CANVAS, CANVAS, 51)),
+                              ("jfa_iters=10 pred_sampled", r10["pred_sampled"],
+                               (8, CANVAS, CANVAS, 51))):
+        if tuple(out.shape) != shape or out.dtype != torch.float32:
+            raise AssertionError(f"{label}: {tuple(out.shape)} {out.dtype}, expected {shape} f32")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{label}: non-finite values")
+    yr = trips["y_sampled_reverse"]
+    if int(yr.min()) < 0 or int(yr.max()) >= 51 or not torch.equal(yr, yr.round()):
+        raise AssertionError("y_sampled_reverse is not class ids in [0, 51)")
+    checks["round_trip_label_agreement"] = float((yr == y.float()).float().mean())
+
+    # two frames of the served score map, recomputed on the host from the
+    # same pred, grid and rounds through the plain versions
+    pred, grid = served["pred"], served["grid"]
+    rounds = jfa_rounds_from_grid(grid, (CANVAS, CANVAS))
+    task_idx, valid = inverse_grid_index(grid[:2].cpu(), (CANVAS, CANVAS))
+    host = unwarp_prediction_fast(pred[:2].float().cpu(), task_idx, valid, None, rounds.cpu())
+    if not torch.equal(host.view(torch.int32), served["pred_sampled"][:2].cpu().view(torch.int32)):
+        raise AssertionError("served pred_sampled != host recompute through the plain versions")
+    log(f"served pred_sampled (frames 0-1) bit-equal to the host recompute "
+        f"(rounds={int(rounds)}); round-trip label agreement "
+        f"{checks['round_trip_label_agreement']:.4f} over {8 * seg} pixels")
+    del served, trips, bi, r10, model_bi, model_r10
+    torch.cuda.empty_cache()
+    return timings, counts, checks
 
 
 def main() -> int:
@@ -165,10 +423,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a CUDA card",
               file=sys.stderr)
         return 1
-
-    from fovealseg_torch.cli import infer as cli
-    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_argmax_scatter
-    from fovealseg_torch.ops.jfa import nearest_class
 
     device = torch.device("cuda", 0)
     log("== phase 1: setup")
@@ -182,62 +436,64 @@ def main() -> int:
     model16 = flagship(torch.bfloat16, device)
     log(f"flagship built ({sum(p.numel() for p in model32.parameters()) / 1e6:.1f} M params) "
         f"in {time.perf_counter() - t:.1f} s")
-    jfa = check_jfa(model32, device)
+    numbers = {"jfa_class": check_jfa(model32, device)}
+    numbers.update(check_new_kernels(model32, device))
+    torch.cuda.empty_cache()
 
-    log("== phase 3: main path")
-    nearest_class.launches = 0
-    calls = 0
-    t = time.perf_counter()
-    cli.main(["--cfg", "fovealseg_tpu/configs/deform.yaml", "--batch", "8", "--num-batches", "3",
-              "MODEL.gaussian_radius", "45", "TRAIN.saliency_input_size", "(80,80)",
-              "TRAIN.task_input_size", "(80,80)", "TPU.compute_dtype", "bfloat16"])
-    calls += 3
-    log(f"cli served 3 b8 batches in {time.perf_counter() - t:.1f} s (model build included)")
-    x, f = frames(8, 640, SEED + 3, device)
-    served = model32.infer(x, f, argmax_labels=True)
-    calls += 1
-    timings = {}
-    for name, model in (("float32", model32), ("bfloat16", model16)):
-        timings[name] = tm = time_serving(model, device)
-        calls += tm.pop("calls")
-        log(f"serving {name}: b8 {tm['b8_ms']:.3f} ms/batch = {tm['b8_fps']:.1f} fps; "
-            f"b1 {tm['b1_ms']:.3f} ms (events), {tm['b1_host_ms']:.3f} ms (host clock)")
-    torch.cuda.synchronize()
-    launches = nearest_class.launches
-    log(f"jfa_class launches in the main path: {launches} (infer calls: {calls})")
-    if launches != calls:
-        raise AssertionError(f"expected {calls} jfa_class launches, counted {launches}")
-
-    label, pred, grid = served["pred_label"], served["pred"], served["grid"]
-    if label.shape != (8, 640, 640) or label.dtype != torch.int32:
-        raise AssertionError(f"pred_label {tuple(label.shape)} {label.dtype}")
-    if int(label.min()) < 0 or int(label.max()) >= 51:
-        raise AssertionError("pred_label outside [0, 51)")
-    if not torch.isfinite(pred).all():
-        raise AssertionError("non-finite logits")
-    rounds = jfa_rounds_from_grid(grid, (640, 640))
-    host = unwarp_argmax_scatter(pred.cpu(), grid.cpu(), (640, 640), rounds=rounds.cpu())
-    if not torch.equal(host, label.cpu()):
-        raise AssertionError("served pred_label != host recompute through the plain jump flood")
-    log(f"served pred_label bit-equal to the host recompute (rounds={int(rounds)})")
-    small_agreement = check_small_against_host(device)
+    log("== phase 3a: main path, argmax serving")
+    serving, argmax_counts = argmax_path(model32, model16, device)
+    small_label_agreement = check_small_against_host(device)
+    log("== phase 3b: main path, score maps and round trips")
+    scoremap, scoremap_counts, checks = scoremap_path(model32, model16, device)
+    checks.update(check_small_scoremap_against_host(device))
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
-    kernels = [{
-        "name": "jfa_class", "route": "cuda", "source": "fovealseg_torch/csrc/jfa.cu",
-        "replaces": "fovealseg_tpu/ops/pallas_jfa.py:209", "launches": launches,
-        "max_abs_err": jfa["max_abs_err"], "bit_equal": jfa["max_abs_err"] == 0,
-        "ms": jfa["ms"], "kernel_ms": jfa["ms"],
-        "plain_ms": jfa["plain_ms"], "bound_ms": jfa["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "rounds": jfa["rounds"],
-    }]
-    log(json.dumps({"serving": timings, "small_input_label_agreement": small_agreement}))
+    meta = {
+        "jfa_class": ("fovealseg_torch/csrc/jfa.cu", "fovealseg_tpu/ops/pallas_jfa.py:209"),
+        "jfa_relpay": ("fovealseg_torch/csrc/jfa.cu", "fovealseg_tpu/ops/pallas_jfa.py:226"),
+        "jfa_payload": ("fovealseg_torch/csrc/jfa.cu", "fovealseg_tpu/ops/pallas_jfa.py:194"),
+        "jfa_seed": ("fovealseg_torch/csrc/jfa.cu", "fovealseg_tpu/ops/pallas_jfa.py:186"),
+        "row_gather": ("fovealseg_torch/csrc/gather.cu", "fovealseg_tpu/ops/pallas_gather.py:78"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        n = numbers[name]
+        launches = argmax_counts[name] + scoremap_counts[name]
+        if launches == 0:
+            raise AssertionError(f"{name} was launched no time on the main paths")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "launches_by_path": {"argmax": argmax_counts[name],
+                                                       "scoremap": scoremap_counts[name]},
+            "max_abs_err": n["max_abs_err"], "bit_equal": n["bit_equal"], "ms": n["ms"],
+            "kernel_ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": "bytes", "library_ms": n["library_ms"], "rounds": n.get("rounds"),
+        })
+    log(json.dumps({"serving": serving, "scoremap": scoremap,
+                    "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _tiny_pair(device, **overrides):
+    """The tiny encoder on a 64x64 canvas: the same weights on the host and
+    on the card."""
+    import torch
+
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+    from fovealseg_torch.models.layers import init_weights
+
+    cfg = DeformConfig(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16),
+                       gaussian_radius=5, num_class=51, arch_encoder="hrnetv2_nodownsp_tiny",
+                       **overrides)
+    host = init_weights(DeformSegmentation(cfg, device="cpu"), torch.Generator().manual_seed(SEED))
+    card = DeformSegmentation(cfg, device=device)
+    card.load_state_dict(host.state_dict())
+    return host, card
 
 
 def check_small_against_host(device) -> float:
@@ -247,14 +503,7 @@ def check_small_against_host(device) -> float:
     straddles an integer)."""
     import torch
 
-    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
-    from fovealseg_torch.models.layers import init_weights
-
-    cfg = DeformConfig(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16),
-                       gaussian_radius=5, num_class=51, arch_encoder="hrnetv2_nodownsp_tiny")
-    host = init_weights(DeformSegmentation(cfg, device="cpu"), torch.Generator().manual_seed(SEED))
-    card = DeformSegmentation(cfg, device=device)
-    card.load_state_dict(host.state_dict())
+    host, card = _tiny_pair(device)
     x, f = frames(2, 64, SEED + 4, "cpu")
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         got = card.infer(x.to(device), f.to(device), argmax_labels=True)
@@ -267,6 +516,49 @@ def check_small_against_host(device) -> float:
     if gerr > 1e-5 or perr > 1e-4 or agree < 0.99:
         raise AssertionError("card and host disagree on the small input")
     return agree
+
+
+def check_small_scoremap_against_host(device) -> dict:
+    """The score map and round trips of the tiny encoder, card (f32, no TF32)
+    against host: the score map within 1e-4 relative on the pixels whose
+    task index agrees (>= 99% of them: a landing pixel moves when a grid
+    coordinate straddles an integer), the round-trip labels on >= 99% of
+    pixels, and the image round trip within 1e-4 on the pixels whose filled
+    seed agrees."""
+    import torch
+
+    from fovealseg_torch.core.grid import inverse_grid_index
+    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid
+    from fovealseg_torch.ops.jfa import nearest_payload_packed_plain, nearest_seed_plain
+
+    host, card = _tiny_pair(device)
+    x, f = frames(2, 64, SEED + 9, "cpu")
+    y = labels(2, 64, SEED + 10, "cpu")
+    kw = dict(y_sampled_reverse=True, x_sampled_reverse=True)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = card.infer(x.to(device), f.to(device), y=y.to(device), **kw)
+    ref = host.infer(x, f, y=y, **kw)
+    got = {k: v.cpu() for k, v in got.items()}
+
+    def winners(out):
+        task_idx, valid = inverse_grid_index(out["grid"], (64, 64))
+        rounds = jfa_rounds_from_grid(out["grid"], (64, 64))
+        return nearest_payload_packed_plain(valid, task_idx, 8, rounds), nearest_seed_plain(valid)
+
+    (t_card, s_card), (t_host, s_host) = winners(got), winners(ref)
+    same_t, same_s = t_card == t_host, s_card == s_host
+    scale = ref["pred_sampled"].abs().max()
+    serr = ((got["pred_sampled"] - ref["pred_sampled"]).abs()[same_t].max() / scale).item()
+    xerr = (got["x_sampled_reverse"] - ref["x_sampled_reverse"]).abs()[same_s].max().item()
+    yagree = (got["y_sampled_reverse"] == ref["y_sampled_reverse"]).float().mean().item()
+    res = {"small_scoremap_task_index_agreement": same_t.float().mean().item(),
+           "small_scoremap_rel_err": serr, "small_x_reverse_abs_err": xerr,
+           "small_y_reverse_agreement": yagree}
+    log(f"small input score map card vs host: {json.dumps(res)}")
+    if (res["small_scoremap_task_index_agreement"] < 0.99 or serr > 1e-4 or xerr > 1e-4
+            or yagree < 0.99 or same_s.float().mean().item() < 0.99):
+        raise AssertionError("card and host disagree on the small input's score map")
+    return res
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ and enqueues batch k+1 while the card computes batch k. Prints a one-line
 JSON throughput summary.
 
 Usage:
-  python -m fovealseg_torch.cli.infer --cfg fovealseg_tpu/configs/deform.yaml \
+  python -m fovealseg_torch.cli.infer --cfg fovealseg_torch/configs/deform.yaml \
       [--images DIR --gaze gaze.json | --num-batches N] [--out DIR] [--device cuda]
   gaze.json: {"<image filename>": [fy, fx], ...} in [0,1]^2 (default center).
 """

@@ -147,3 +147,24 @@ def inverse_grid_index(grid: torch.Tensor, seg_hw: tuple[int, int]):
     flat_task = torch.arange(th * tw, dtype=torch.int32, device=grid.device)[None].expand(b, th * tw)
     canvas = landing_scatter_max(grid, seg_hw, flat_task)
     return canvas, canvas >= 0
+
+
+def grid_from_index(canvas: torch.Tensor, valid: torch.Tensor,
+                    task_hw: tuple[int, int]) -> torch.Tensor:
+    """The inverse grid [B, Hs, Ws, 2] of ``inverse_grid_index``'s output: a
+    landed pixel holds the normalized coordinates (j / tw * 2 - 1,
+    i / th * 2 - 1) of the task pixel (i, j) that won its landing scatter,
+    a hole holds NaN."""
+    th, tw = task_hw
+    safe = torch.clamp(canvas, min=0)
+    gx = torch.where(valid, (safe % tw) / tw * 2.0 - 1.0, float("nan"))
+    gy = torch.where(valid, torch.div(safe, tw, rounding_mode="floor") / th * 2.0 - 1.0,
+                     float("nan"))
+    return torch.stack([gx, gy], dim=-1)
+
+
+def inverse_grid(grid: torch.Tensor, seg_hw: tuple[int, int]):
+    """Scatter-based inverse deformation grid: (grid_inv [B, Hs, Ws, 2] with
+    (x, y) in [-1, 1] and NaN at holes, valid [B, Hs, Ws] bool)."""
+    canvas, valid = inverse_grid_index(grid, seg_hw)
+    return grid_from_index(canvas, valid, (grid.shape[1], grid.shape[2])), valid

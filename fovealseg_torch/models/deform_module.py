@@ -11,9 +11,12 @@ prefixes as the JAX package's parameter subtrees. Public tensors keep the JAX
 layouts (images [B,H,W,3], grids [B,h,w,2], logits [B,h,w,C]); the
 sub-networks run NCHW.
 
-This slice ports the eval forward and the argmax serving path of ``infer``
-(``argmax_labels=True``, ``rev_deform_interp='nearest'``). Other branches
-raise ``NotImplementedError`` naming the slice that brings them.
+The eval forward and ``infer`` are ported: argmax labels and full-res score
+maps in every ``rev_deform_interp`` ('nearest', 'BI', 'tri'), and the
+``y_sampled_reverse`` / ``x_sampled_reverse`` round trips. The
+``MODEL.uniform_sample`` baselines, ``VAL.F_Xlr_low_scale > 1``, the saliency
+overrides, ``TPU.scoremap_gather_bf16`` and training raise
+``NotImplementedError`` naming where they go.
 """
 
 from __future__ import annotations
@@ -25,17 +28,29 @@ import torch.nn as nn
 
 from fovealseg_torch import resolve_device
 from fovealseg_torch.core.gaze import focus_distance_map
-from fovealseg_torch.core.grid import GridSolver, inverse_grid_index, pad_saliency
+from fovealseg_torch.core.grid import (
+    GridSolver,
+    grid_from_index,
+    inverse_grid_index,
+    pad_saliency,
+)
 from fovealseg_torch.core.interpolate import resize_bilinear, resize_bilinear_nchw
-from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_argmax_scatter
-from fovealseg_torch.core.warp import grid_sample_nchw
+from fovealseg_torch.core.unwarp import (
+    fill_values_splat,
+    jfa_rounds_from_grid,
+    unwarp_argmax_scatter,
+    unwarp_labels_fast,
+    unwarp_prediction,
+    unwarp_prediction_fast,
+)
+from fovealseg_torch.core.warp import grid_sample, grid_sample_nchw
 
 
 @dataclasses.dataclass(frozen=True)
 class DeformConfig:
     """Static geometry/config snapshot: the JAX package's DeformConfig fields
-    this slice reads, with the same defaults (the score-map gather and
-    gt-gradient sampler fields arrive with their slices)."""
+    the port reads, with the same defaults (the gt-gradient sampler fields
+    arrive with the training slice)."""
 
     task_hw: tuple[int, int] = (80, 80)
     task_hw_infer: tuple[int, int] = (80, 80)
@@ -54,6 +69,8 @@ class DeformConfig:
     uniform_sample: str = ""
     f_xlr_low_scale: int = 0
     jfa_iters: int = 0  # 0 = derive the round count from the grid at runtime
+    scoremap_gather: str = "xla"  # TPU.scoremap_gather: both values take K5
+    scoremap_gather_bf16: bool = False  # TPU.scoremap_gather_bf16: not ported
     gt_gradient: bool = False
     loss_at_high_res: bool = False
 
@@ -79,6 +96,8 @@ class DeformConfig:
             uniform_sample=cfg.MODEL.uniform_sample,
             f_xlr_low_scale=cfg.VAL.F_Xlr_low_scale,
             jfa_iters=cfg.TPU.jfa_iters,
+            scoremap_gather=cfg.TPU.scoremap_gather,
+            scoremap_gather_bf16=cfg.TPU.scoremap_gather_bf16,
             gt_gradient=cfg.MODEL.gt_gradient,
             loss_at_high_res=cfg.MODEL.loss_at_high_res,
         )
@@ -93,7 +112,7 @@ class DeformConfig:
 
 
 class DeformSegmentation(nn.Module):
-    """Foveation + segmentation, eval forward and argmax serving.
+    """Foveation + segmentation, eval forward and full-resolution inference.
 
     ``dtype`` is the sub-networks' compute dtype (params stay f32), as the
     JAX module's ``dtype``. ``device`` defaults to ``cuda`` and raises when
@@ -182,31 +201,62 @@ class DeformSegmentation(nn.Module):
     def infer(self, x: torch.Tensor, focus_point: torch.Tensor, seg_hw=None, y=None,
               y_sampled_reverse: bool = False, x_sampled_reverse: bool = False,
               argmax_labels: bool = False):
-        """Full-resolution argmax serving: dict(xs, grid, grid_y, grid_inv,
-        unfilled_mask, x_sampled, pred, pred_label); ``pred_label`` is
-        [B, Hs, Ws] int32. x: [B, H, W, 3] in [0, 1]; focus_point: [B, 2]."""
+        """Full-resolution inference with inverse warp and hole fill:
+        dict(xs, grid, grid_y, grid_inv, unfilled_mask, x_sampled, pred) plus
+        ``pred_sampled`` [B, Hs, Ws, C] f32 full-res scores (not on the argmax
+        path with 'nearest'), ``pred_label`` [B, Hs, Ws] int32 when
+        ``argmax_labels``, and the round trips when asked: ``y_sampled``
+        [B, th, tw] and ``y_sampled_reverse`` [B, Hs, Ws] (f32 labels; needs
+        ``y`` [B, Hs, Ws]), ``x_sampled_reverse`` [B, Hs, Ws, 3].
+        x: [B, H, W, 3] in [0, 1]; focus_point: [B, 2]."""
         c = self.config
-        if not argmax_labels or c.rev_deform_interp != "nearest":
-            raise NotImplementedError(
-                "only infer(argmax_labels=True) with rev_deform_interp='nearest' is ported; the "
-                "score-map and 'BI'/'tri' inverse warps arrive with the score-map slice")
-        if y_sampled_reverse or x_sampled_reverse:
-            raise NotImplementedError(
-                "the y/x_sampled_reverse round trips arrive with the label inverse-warp slice")
         seg_hw = tuple(seg_hw) if seg_hw is not None else (x.shape[1], x.shape[2])
         xs = self._apply_overrides(self.saliency(x, focus_point), y)
         grid, grid_y = self.grids(xs, task_hw=c.task_hw_infer, label_hw=c.task_hw_infer)
         x_sampled, pred = self._segment(x, grid)
         task_idx, valid = inverse_grid_index(grid, seg_hw)
-        th, tw = grid.shape[1], grid.shape[2]
-        safe = torch.clamp(task_idx, min=0)
-        gx = torch.where(valid, (safe % tw) / tw * 2.0 - 1.0, float("nan"))
-        gy = torch.where(valid, torch.div(safe, tw, rounding_mode="floor") / th * 2.0 - 1.0,
-                         float("nan"))
-        grid_inv = torch.stack([gx, gy], dim=-1)
+        grid_inv = grid_from_index(task_idx, valid, (grid.shape[1], grid.shape[2]))
+        jfa_iters = c.jfa_iters or None
         rounds = None if c.jfa_iters else jfa_rounds_from_grid(grid, seg_hw)
-        pred_label = unwarp_argmax_scatter(pred.to(torch.float32), grid, seg_hw,
-                                           c.jfa_iters or None, rounds)
-        return dict(xs=xs, grid=grid, grid_y=grid_y, grid_inv=grid_inv,
-                    unfilled_mask=~valid, x_sampled=x_sampled, pred=pred,
-                    pred_label=pred_label)
+        pred32 = pred.to(torch.float32)
+        out = dict(xs=xs, grid=grid, grid_y=grid_y, grid_inv=grid_inv, unfilled_mask=~valid,
+                   x_sampled=x_sampled, pred=pred)
+        if argmax_labels and c.rev_deform_interp == "nearest":
+            # serving: argmax commutes with the row-gather inverse warp, so the
+            # class ids ride the landing scatter and the class-mode flood
+            out["pred_label"] = unwarp_argmax_scatter(pred32, grid, seg_hw, jfa_iters, rounds)
+        elif c.rev_deform_interp == "nearest":
+            out["pred_sampled"] = unwarp_prediction_fast(
+                pred32, task_idx, valid, jfa_iters, rounds,
+                gather_bf16=c.scoremap_gather_bf16, gather_impl=c.scoremap_gather)
+        else:
+            out["pred_sampled"] = unwarp_prediction(pred32, grid_inv, valid,
+                                                    interp=c.rev_deform_interp)
+            if argmax_labels:
+                out["pred_label"] = torch.argmax(out["pred_sampled"], dim=-1).to(torch.int32)
+        if y_sampled_reverse and y is not None:
+            # the labels down through the forward grid and back up, branched on
+            # rev_deform_interp as the JAX package does
+            y_s = grid_sample(y.to(torch.float32)[..., None], grid_y, mode="nearest")
+            out["y_sampled"] = y_s[..., 0]
+            if c.rev_deform_interp == "nearest":
+                rev = unwarp_labels_fast(y_s, task_idx, valid, jfa_iters, rounds)[..., 0]
+            elif c.rev_deform_interp == "BI":
+                # raw class ids value-filled at the holes (fractional there)
+                grid_safe = torch.where(torch.isnan(grid_inv), 0.0, grid_inv)
+                sampled = grid_sample(y_s, grid_safe, mode="nearest")
+                sampled = sampled * valid[..., None].to(sampled.dtype)
+                rev = fill_values_splat(sampled, valid)[..., 0]
+            else:
+                # 'tri': one-hot score planes, inverse warp, value fill, argmax;
+                # labels outside [0, num_class) give an all-zero plane
+                classes = torch.arange(c.num_class, device=y_s.device, dtype=torch.int32)
+                scores = (y_s.to(torch.int32) == classes).to(torch.float32)
+                rev = torch.argmax(unwarp_prediction(scores, grid_inv, valid,
+                                                     interp=c.rev_deform_interp), dim=-1)
+                rev = rev.to(torch.float32)
+            out["y_sampled_reverse"] = rev
+        if x_sampled_reverse:
+            out["x_sampled_reverse"] = unwarp_prediction(
+                x_sampled.to(torch.float32), grid_inv, valid, interp=c.rev_deform_interp)
+        return out

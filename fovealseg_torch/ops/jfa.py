@@ -1,16 +1,26 @@
-"""Class-mode jump flood: every pixel gets the payload of its nearest valid
-seed (counterpart of ``fovealseg_tpu/ops/pallas_jfa.py::nearest_class_pallas``).
+"""Jump flood: every pixel gets its nearest valid seed's payload or flat
+index (counterparts of ``fovealseg_tpu/ops/pallas_jfa.py``'s four modes).
 
-``nearest_class`` launches the hand-written CUDA kernel
-(``fovealseg_torch/csrc/jfa.cu``) for CUDA tensors and takes the plain
-PyTorch version, ``nearest_class_plain``, for CPU tensors. Both reproduce the
-Pallas kernel bit for bit: ``rounds`` clipped to [1, full] with
+=========================  ========================================  ====
+wrapper                    TPU entry point                           #
+=========================  ========================================  ====
+``nearest_class``          ``nearest_class_pallas`` ('class')        K1
+``nearest_payload_packed`` ``nearest_payload_packed_pallas``         K2
+``nearest_payload``        ``nearest_payload_pallas`` ('payload')    K3
+``nearest_seed``           ``nearest_seed_pallas`` ('seed')          K4
+=========================  ========================================  ====
+
+Each wrapper launches the hand-written CUDA kernel
+(``fovealseg_torch/csrc/jfa.cu``) for CUDA tensors and takes its plain
+PyTorch version (``*_plain``) for CPU tensors. All reproduce the Pallas
+kernel bit for bit: ``rounds`` clipped to [1, full] with
 full = ceil(log2(max(H, W))), rounds+1 trips with step
 ``max((1 << (rounds-1)) >> i, 1)``, the 8 directions applied in sequence
 within a trip, out-of-range candidates invalid, strict ``<`` on the squared
-integer distance, 0 where no seed exists.
+integer distance, 0 where no seed exists. The modes differ only in what is
+read at the winning seed, so one flood serves them all.
 
-The kernel's launch count is ``nearest_class.launches``: one per call that
+Each kernel's launch count is ``<wrapper>.launches``: one per call that
 launched it.
 """
 
@@ -23,6 +33,10 @@ import torch
 
 _FAR = 2**31 - 1
 _MAX_SIDE = 1 << 15  # positions ride as (y << 16) | x in one int32
+# The TPU's 'relpay' mode packs a payload of up to 13 bits beside two 9-bit
+# offsets and is exact for at most 7 rounds (pallas_jfa.py REL_MAX_ROUNDS)
+REL_MAX_PAY_BITS = 13
+REL_MAX_ROUNDS = 7
 
 
 def full_rounds(h: int, w: int) -> int:
@@ -30,16 +44,20 @@ def full_rounds(h: int, w: int) -> int:
     return max(1, math.ceil(math.log2(max(h, w))))
 
 
-def _check(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int) -> None:
+def _check(valid: torch.Tensor, payload: torch.Tensor | None = None, cls_bits: int | None = None,
+           pay_bits: int | None = None) -> None:
     if valid.dtype != torch.bool or valid.dim() != 3:
         raise ValueError(f"valid must be [B, H, W] bool, got {tuple(valid.shape)} {valid.dtype}")
-    if payload.dtype != torch.int32 or payload.shape != valid.shape:
-        raise ValueError(f"payload must be int32 of shape {tuple(valid.shape)}, "
-                         f"got {tuple(payload.shape)} {payload.dtype}")
-    if payload.device != valid.device:
-        raise ValueError("valid and payload must be on one device")
-    if not 0 < cls_bits < 31:
+    if payload is not None:
+        if payload.dtype != torch.int32 or payload.shape != valid.shape:
+            raise ValueError(f"payload must be int32 of shape {tuple(valid.shape)}, "
+                             f"got {tuple(payload.shape)} {payload.dtype}")
+        if payload.device != valid.device:
+            raise ValueError("valid and payload must be on one device")
+    if cls_bits is not None and not 0 < cls_bits < 31:
         raise ValueError(f"cls_bits must be in [1, 30], got {cls_bits}")
+    if pay_bits is not None and not 0 < pay_bits < 32:
+        raise ValueError(f"pay_bits must be in [1, 31], got {pay_bits}")
 
 
 def _host_rounds(rounds, full: int) -> int:
@@ -58,14 +76,10 @@ def _shift(x: torch.Tensor, dy: int, dx: int, fill: int) -> torch.Tensor:
     return out
 
 
-def nearest_class_plain(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int,
-                        rounds=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on CPU or CUDA tensors.
-
-    ``rounds`` is None (full), an int, or an int32 tensor holding one value
-    (read to the host here: this version is the reference, not the path)."""
-    _check(valid, payload, cls_bits)
-    b, h, w = valid.shape
+def _flood_plain(valid: torch.Tensor, rounds) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seed_y, seed_x) [B, H, W] int32 of each pixel's winning seed, -1
+    where none is reached."""
+    _, h, w = valid.shape
     r = _host_rounds(rounds, full_rounds(h, w))
     dev = valid.device
     ys = torch.arange(h, dtype=torch.int32, device=dev).view(1, h, 1)
@@ -86,9 +100,49 @@ def nearest_class_plain(valid: torch.Tensor, payload: torch.Tensor, cls_bits: in
                 seed_y = torch.where(better, cy, seed_y)
                 seed_x = torch.where(better, cx, seed_x)
                 best = torch.where(better, d, best)
+    return seed_y, seed_x
+
+
+def _payload_at_seed(valid, payload, rounds) -> torch.Tensor:
+    b, h, w = valid.shape
+    seed_y, seed_x = _flood_plain(valid, rounds)
     flat = (seed_y.clamp(min=0) * w + seed_x.clamp(min=0)).reshape(b, h * w).long()
     out = torch.gather(payload.reshape(b, h * w), 1, flat).reshape(b, h, w)
     return torch.where(seed_y >= 0, out, 0)
+
+
+def nearest_class_plain(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int,
+                        rounds=None) -> torch.Tensor:
+    """Plain PyTorch version of K1, on CPU or CUDA tensors.
+
+    ``rounds`` is None (full), an int, or an int32 tensor holding one value
+    (read to the host here: this version is the reference, not the path)."""
+    _check(valid, payload, cls_bits)
+    return _payload_at_seed(valid, payload, rounds)
+
+
+def nearest_payload_plain(valid: torch.Tensor, payload: torch.Tensor, rounds=None) -> torch.Tensor:
+    """Plain PyTorch version of K3 (any int32 payload)."""
+    _check(valid, payload)
+    return _payload_at_seed(valid, payload, rounds)
+
+
+def nearest_payload_packed_plain(valid: torch.Tensor, payload: torch.Tensor, pay_bits: int,
+                                 rounds=None) -> torch.Tensor:
+    """Plain PyTorch version of K2 (payload < 2**pay_bits). The Pallas
+    kernel's relative-offset packing and its fallback to 'payload' mode
+    past 7 rounds give the same winners as K3, so this is K3's function."""
+    _check(valid, payload, pay_bits=pay_bits)
+    return _payload_at_seed(valid, payload, rounds)
+
+
+def nearest_seed_plain(valid: torch.Tensor, rounds=None) -> torch.Tensor:
+    """Plain PyTorch version of K4: flat index y*W + x of each pixel's
+    nearest valid seed, 0 where none is reached."""
+    _check(valid)
+    w = valid.shape[2]
+    seed_y, seed_x = _flood_plain(valid, rounds)
+    return torch.where(seed_y >= 0, seed_y * w + seed_x, 0)
 
 
 def _rounds_tensor(rounds, full: int, device: torch.device) -> torch.Tensor:
@@ -101,10 +155,35 @@ def _rounds_tensor(rounds, full: int, device: torch.device) -> torch.Tensor:
     return rounds.reshape(1).contiguous()
 
 
+def _launch(entry: str, valid: torch.Tensor, payload: torch.Tensor | None, rounds,
+            name: str) -> torch.Tensor:
+    """Launch ``entry`` of ``csrc/jfa.cu`` on CUDA tensors; raise on what it
+    does not take or if the launch fails."""
+    if valid.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {valid.device}")
+    b, h, w = valid.shape
+    if h >= _MAX_SIDE or w >= _MAX_SIDE or b >= 65536:
+        raise ValueError(f"canvas {b}x{h}x{w} exceeds the kernel's limits")
+    if not valid.is_contiguous() or (payload is not None and not payload.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous inputs")
+    full = full_rounds(h, w)
+    r = _rounds_tensor(rounds, full, valid.device)
+    out = torch.empty((b, h, w), dtype=torch.int32, device=valid.device)
+    scratch = torch.empty_like(out)
+    with torch.cuda.device(valid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [valid.data_ptr()] + ([payload.data_ptr()] if payload is not None else [])
+        err = _kernel(entry, len(ptrs))(*ptrs, out.data_ptr(), scratch.data_ptr(), r.data_ptr(),
+                                         b, h, w, full, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    return out
+
+
 def nearest_class(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int,
                   rounds=None) -> torch.Tensor:
-    """valid [B, H, W] bool, payload [B, H, W] int32 (values < 2**cls_bits)
-    -> [B, H, W] int32 payload of each pixel's nearest valid seed.
+    """K1. valid [B, H, W] bool, payload [B, H, W] int32 (values <
+    2**cls_bits) -> [B, H, W] int32 payload of each pixel's nearest valid seed.
 
     ``rounds``: None (full chain), an int, or an int32 device scalar such as
     ``core.unwarp.jfa_rounds_from_grid``'s, which the kernel reads on the
@@ -113,35 +192,61 @@ def nearest_class(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int,
     _check(valid, payload, cls_bits)
     if valid.device.type == "cpu":
         return nearest_class_plain(valid, payload, cls_bits, rounds)
-    if valid.device.type != "cuda":
-        raise ValueError(f"nearest_class runs on cpu or cuda tensors, not {valid.device}")
-    b, h, w = valid.shape
-    if h >= _MAX_SIDE or w >= _MAX_SIDE or b >= 65536:
-        raise ValueError(f"canvas {b}x{h}x{w} exceeds the kernel's limits")
-    if not (valid.is_contiguous() and payload.is_contiguous()):
-        raise ValueError("nearest_class needs contiguous valid and payload")
-    full = full_rounds(h, w)
-    r = _rounds_tensor(rounds, full, valid.device)
-    out = torch.empty((b, h, w), dtype=torch.int32, device=valid.device)
-    scratch = torch.empty_like(out)
-    with torch.cuda.device(valid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(valid.data_ptr(), payload.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                        r.data_ptr(), b, h, w, full, stream)
-    if err != 0:
-        raise RuntimeError(f"jfa kernel launch failed with CUDA error {err}")
+    out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds, "nearest_class")
     nearest_class.launches += 1
     return out
 
 
-nearest_class.launches = 0
+def nearest_payload(valid: torch.Tensor, payload: torch.Tensor, rounds=None) -> torch.Tensor:
+    """K3: as ``nearest_class`` for any int32 payload."""
+    _check(valid, payload)
+    if valid.device.type == "cpu":
+        return nearest_payload_plain(valid, payload, rounds)
+    out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds, "nearest_payload")
+    nearest_payload.launches += 1
+    return out
 
 
-def _kernel():
+def nearest_payload_packed(valid: torch.Tensor, payload: torch.Tensor, pay_bits: int,
+                           rounds=None) -> torch.Tensor:
+    """K2: as ``nearest_payload`` for payloads < 2**pay_bits, pay_bits <= 13
+    (flat task indices). Dispatches as the Pallas entry point does: a
+    payload wider than 13 bits, or a round count known on the host above
+    ``REL_MAX_ROUNDS`` (the TPU kernel's ``lax.cond``), goes to K3. A
+    device-scalar count stays here without a host sync: the CUDA kernel has
+    no round cap and its winners do not depend on the count's side of 7."""
+    _check(valid, payload, pay_bits=pay_bits)
+    host_r = full_rounds(*valid.shape[1:]) if rounds is None else rounds
+    if pay_bits > REL_MAX_PAY_BITS or (isinstance(host_r, int) and host_r > REL_MAX_ROUNDS):
+        return nearest_payload(valid, payload, rounds)
+    if valid.device.type == "cpu":
+        return nearest_payload_packed_plain(valid, payload, pay_bits, rounds)
+    out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds,
+                  "nearest_payload_packed")
+    nearest_payload_packed.launches += 1
+    return out
+
+
+def nearest_seed(valid: torch.Tensor, rounds=None) -> torch.Tensor:
+    """K4: valid [B, H, W] bool -> [B, H, W] int32 flat index y*W + x of each
+    pixel's nearest valid seed (0 where none is reached)."""
+    _check(valid)
+    if valid.device.type == "cpu":
+        return nearest_seed_plain(valid, rounds)
+    out = _launch("fovealseg_jfa_nearest_seed", valid, None, rounds, "nearest_seed")
+    nearest_seed.launches += 1
+    return out
+
+
+for _fn in (nearest_class, nearest_payload, nearest_payload_packed, nearest_seed):
+    _fn.launches = 0
+
+
+def _kernel(entry: str, n_inputs: int):
     from fovealseg_torch.ops.build import load
 
-    fn = load("jfa").fovealseg_jfa_nearest_class
+    fn = getattr(load("jfa"), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (n_inputs + 3) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -18,7 +18,7 @@ TINY_OPTS = ["TRAIN.task_input_size", "(16,16)", "TRAIN.saliency_input_size", "(
 def _run(args, timeout=300):
     env = dict(os.environ, OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable, "-m", "fovealseg_torch.cli.infer",
-                           "--cfg", "fovealseg_tpu/configs/deform.yaml", *args],
+                           "--cfg", "fovealseg_torch/configs/deform.yaml", *args],
                           cwd=REPO, capture_output=True, text=True, timeout=timeout, env=env)
 
 

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from fovealseg_torch.ops import jfa
+from fovealseg_torch.ops.gather import row_gather, row_gather_plain
 from fovealseg_torch.ops.jfa import full_rounds, nearest_class, nearest_class_plain
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +86,144 @@ def test_tiny_slice_on_card_matches_host(dev):
     host_labels = unwarp_argmax_scatter(got["pred"].cpu(), got["grid"].cpu(), (64, 64),
                                         rounds=jfa_rounds_from_grid(got["grid"], (64, 64)).cpu())
     torch.testing.assert_close(got["pred_label"].cpu(), host_labels, rtol=0, atol=0)
+
+
+def _rounds(rounds, full, dev):
+    if rounds == "device":
+        return torch.tensor(3, dtype=torch.int32, device=dev)
+    return {"full": full, "full+2": full + 2}.get(rounds) or int(rounds)
+
+
+def _host(r):
+    return r.cpu() if torch.is_tensor(r) else r
+
+
+@pytest.mark.parametrize("shape,p_hole", [((2, 64, 64), 0.95), ((3, 48, 80), 0.99),
+                                          ((8, 640, 640), 0.995), ((1, 33, 1000), 0.999)])
+@pytest.mark.parametrize("rounds", ["2", "7", "full", "device"])
+def test_payload_and_seed_kernels_bit_equal_to_plain(dev, shape, p_hole, rounds):
+    """K2, K3 and K4 against their plain versions."""
+    valid, _ = _case(shape, p_hole, seed=sum(shape) + 1)
+    h, w = shape[1:]
+    pay = torch.randint(0, 2**13, shape, generator=torch.Generator().manual_seed(5),
+                        dtype=torch.int32)
+    r = _rounds(rounds, full_rounds(h, w), dev)
+    v, p = valid.to(dev), pay.to(dev)
+    k2 = jfa.nearest_payload_packed(v, p, 13, r)
+    k3 = jfa.nearest_payload(v, p * 3 + 2**20, r)  # wider than K2 takes
+    k4 = jfa.nearest_seed(v, r)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k2.cpu(), jfa.nearest_payload_packed_plain(valid, pay, 13, _host(r)),
+                               rtol=0, atol=0)
+    wide = pay * 3 + 2**20
+    torch.testing.assert_close(k3.cpu(), jfa.nearest_payload_plain(valid, wide, _host(r)),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(k4.cpu(), jfa.nearest_seed_plain(valid, _host(r)), rtol=0, atol=0)
+
+
+def test_payload_packed_routes_host_rounds_past_seven_to_k3(dev):
+    valid, pay = _case((2, 256, 256), 0.99, 7)
+    before = (jfa.nearest_payload_packed.launches, jfa.nearest_payload.launches)
+    jfa.nearest_payload_packed(valid.to(dev), pay.to(dev), 13, 8)
+    jfa.nearest_payload_packed(valid.to(dev), pay.to(dev), 13, torch.tensor(8, dtype=torch.int32,
+                                                                            device=dev))
+    jfa.nearest_payload_packed(valid.to(dev), pay.to(dev), 13, 7)
+    assert (jfa.nearest_payload_packed.launches, jfa.nearest_payload.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+def test_payload_and_seed_kernels_no_seed(dev):
+    valid = torch.zeros((2, 100, 130), dtype=torch.bool)
+    valid[1, 99, 0] = True
+    pay = torch.full((2, 100, 130), 9, dtype=torch.int32)
+    for out in (jfa.nearest_payload_packed(valid.to(dev), pay.to(dev), 13),
+                jfa.nearest_payload(valid.to(dev), pay.to(dev))):
+        out = out.cpu()
+        assert (out[0] == 0).all() and (out[1] == 9).all()
+    seed = jfa.nearest_seed(valid.to(dev)).cpu()
+    assert (seed[0] == 0).all() and (seed[1] == 99 * 130).all()
+
+
+def test_payload_and_seed_kernels_reject_bad_inputs(dev):
+    valid, pay = _case((2, 64, 64), 0.9, 1)
+    v, p = valid.to(dev), pay.to(dev)
+    with pytest.raises(ValueError):
+        jfa.nearest_payload_packed(v.transpose(1, 2), p.transpose(1, 2), 13)
+    with pytest.raises(ValueError):
+        jfa.nearest_payload(v.transpose(1, 2), p.transpose(1, 2))
+    with pytest.raises(ValueError):
+        jfa.nearest_seed(v.transpose(1, 2))
+    with pytest.raises(ValueError):
+        jfa.nearest_payload(v, p.to(torch.int64))
+    with pytest.raises(ValueError):
+        jfa.nearest_seed(v.to(torch.uint8))
+
+
+@pytest.mark.parametrize("b,t,c,hw,dtype", [(8, 6400, 51, (640, 640), torch.float32),
+                                            (8, 6400, 1, (640, 640), torch.int32),
+                                            (2, 4096, 2, (64, 64), torch.float32),
+                                            (3, 100, 300, (17, 23), torch.float32),
+                                            (1, 7, 5, (1, 1), torch.int32)])
+def test_row_gather_bit_equal_to_plain(dev, b, t, c, hw, dtype):
+    """K5 against its plain version, NaN and signed-zero words included, and
+    out-of-range indices clamped as the plain version clamps them."""
+    g = torch.Generator().manual_seed(b * t + c)
+    if dtype == torch.float32:
+        table = torch.randn((b, t, c), generator=g)
+        table.view(-1)[:: 97] = float("nan")
+        table.view(-1)[1:: 101] = -0.0
+    else:
+        table = torch.randint(-2**31, 2**31 - 1, (b, t, c), generator=g, dtype=torch.int32)
+    idx = torch.randint(-3, t + 3, (b, *hw), generator=g, dtype=torch.int32)
+    before = row_gather.launches
+    out = row_gather(table.to(dev), idx.to(dev))
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    ref = row_gather_plain(table, idx)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_row_gather_rejects_bad_inputs(dev):
+    table = torch.randn((2, 10, 3), device=dev)
+    idx = torch.zeros((2, 4, 5), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        row_gather(table.transpose(1, 2), idx)
+    with pytest.raises(ValueError):
+        row_gather(table, idx.transpose(1, 2))
+    with pytest.raises(ValueError):
+        row_gather(table.to(torch.float16), idx)
+    with pytest.raises(ValueError):
+        row_gather(table, idx.to(torch.int64))
+
+
+def test_tiny_scoremap_slice_on_card_matches_host(dev):
+    """The score map and round trips on the card are exactly what the plain
+    versions make of the card's own pred and grid; pred and grid match the
+    host's within the slice's tolerances."""
+    from fovealseg_torch.core.grid import inverse_grid_index
+    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_prediction_fast
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+
+    cfg = DeformConfig(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16),
+                       gaussian_radius=5, num_class=51, arch_encoder="hrnetv2_nodownsp_tiny")
+    torch.manual_seed(0)
+    host = DeformSegmentation(cfg, device="cpu")
+    card = DeformSegmentation(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    f = torch.from_numpy(rng.uniform(0.2, 0.8, (2, 2)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 51, (2, 64, 64)).astype(np.int32))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = card.infer(x.to(dev), f.to(dev), y=y.to(dev), y_sampled_reverse=True,
+                         x_sampled_reverse=True)
+    ref = host.infer(x, f, y=y, y_sampled_reverse=True, x_sampled_reverse=True)
+    torch.testing.assert_close(got["grid"].cpu(), ref["grid"], rtol=0, atol=1e-5)
+    pred, grid = got["pred"].cpu(), got["grid"].cpu()
+    task_idx, valid = inverse_grid_index(grid, (64, 64))
+    host_map = unwarp_prediction_fast(pred, task_idx, valid, None,
+                                      jfa_rounds_from_grid(got["grid"], (64, 64)).cpu())
+    torch.testing.assert_close(got["pred_sampled"].cpu(), host_map, rtol=0, atol=0)
+    for key in ("y_sampled", "y_sampled_reverse", "x_sampled_reverse"):
+        assert got[key].shape == ref[key].shape and torch.isfinite(got[key]).all(), key

@@ -31,8 +31,13 @@ def _imported(path):
 def test_port_sources_exist():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("fovealseg_torch", "ops", "jfa.py") in names
-    assert len(names) > 15
+    for mod in (("ops", "jfa.py"), ("ops", "gather.py"), ("core", "unwarp.py"),
+                ("core", "warp.py"), ("core", "grid.py")):
+        assert os.path.join("fovealseg_torch", *mod) in names
+    for src in ("jfa.cu", "gather.cu"):
+        assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
+    assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "configs", "deform.yaml"))
+    assert len(names) > 16
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

@@ -132,12 +132,20 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("branch", ["scoremap", "tri", "y_reverse", "x_reverse", "uniform",
                                     "gt_gradient", "f_xlr", "train"])
 def test_later_slices_raise(branch):
+    """What is still unported raises. The score map, 'BI'/'tri' and the round
+    trips are ported (test_torch_port_scoremap.py); their
+    ``MODEL.uniform_sample`` variants (the JAX package's resize branches of
+    the same outputs) arrive with the eval slice."""
     cfg = dict(TINY)
-    cfg.update({"tri": {"rev_deform_interp": "tri"}, "uniform": {"uniform_sample": "BI"},
-                "gt_gradient": {"gt_gradient": True}, "f_xlr": {"f_xlr_low_scale": 2}}.get(branch, {}))
+    cfg.update({"scoremap": {"uniform_sample": "nearest"},
+                "tri": {"rev_deform_interp": "tri", "uniform_sample": "BI"},
+                "y_reverse": {"uniform_sample": "BI"}, "x_reverse": {"uniform_sample": "BI"},
+                "uniform": {"uniform_sample": "BI"},
+                "gt_gradient": {"gt_gradient": True},
+                "f_xlr": {"f_xlr_low_scale": 2}}.get(branch, {}))
     model = DeformSegmentation(DeformConfig(**cfg), device="cpu")
     x, f = torch.zeros((1, 64, 64, 3)), torch.full((1, 2), 0.5)
-    kwargs = {"scoremap": dict(argmax_labels=False),
+    kwargs = {"scoremap": dict(argmax_labels=False), "tri": dict(argmax_labels=False),
               "y_reverse": dict(argmax_labels=True, y_sampled_reverse=True, y=x[..., 0]),
               "x_reverse": dict(argmax_labels=True, x_sampled_reverse=True)}.get(
                   branch, dict(argmax_labels=True))
@@ -146,6 +154,13 @@ def test_later_slices_raise(branch):
             model(x, f, train=True)
         else:
             model.infer(x, f, **kwargs)
+
+
+def test_scoremap_gather_bf16_raises():
+    """TPU.scoremap_gather_bf16 stands in ROADMAP's "Not to port" list."""
+    model = DeformSegmentation(DeformConfig(**TINY, scoremap_gather_bf16=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        model.infer(torch.zeros((1, 64, 64, 3)), torch.full((1, 2), 0.5))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
