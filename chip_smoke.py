@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, bit-equal, with CUDA-event times, the
      byte bound and, where one PyTorch call computes the same function, that
-     call's time;
+     call's time; K1 also at rounds=1 and on a 65x1000 canvas; the jump
+     flood's launches per call and per-trip device times from torch.profiler;
   3. the main paths at full flagship width (HRNetV2-nodownsp + C1, 640x640
      canvas -> 80x80 task, 51 classes, random weights from a seed), each with
      every kernel's launch count set to 0 just before it and read just after:
@@ -187,12 +188,16 @@ def check_jfa(model, device):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     sparse = torch.rand((8, CANVAS, CANVAS), generator=gen) > 0.995
     non_square = torch.rand((8, 480, CANVAS), generator=gen) > 0.99
+    wide = torch.rand((8, 65, 1000), generator=gen) > 0.99
     cases = [
         ("flagship landing scatter, runtime rounds", valid, cls, rounds),
+        ("flagship landing scatter, rounds=1", valid, cls, 1),
         ("random sparse, full rounds", sparse.to(device),
          torch.randint(0, 51, sparse.shape, generator=gen, dtype=torch.int32).to(device), None),
         ("non-square 480x640, full rounds", non_square.to(device),
          torch.randint(0, 51, non_square.shape, generator=gen, dtype=torch.int32).to(device), None),
+        ("65x1000, full rounds", wide.to(device),
+         torch.randint(0, 51, wide.shape, generator=gen, dtype=torch.int32).to(device), None),
     ]
     result = None
     for label, v, p, r in cases:
@@ -205,7 +210,30 @@ def check_jfa(model, device):
         if result is None:  # the main path's own shapes and data
             result = dict(res, rounds=n_rounds)
         result["max_abs_err"] = max(result["max_abs_err"], res["max_abs_err"])
+    result["trips"] = flood_trips(f"jfa_class flagship landing scatter, rounds={result['rounds']}",
+                                  lambda: nearest_class(valid, cls, cls_bits, rounds),
+                                  full_rounds(CANVAS, CANVAS))
     return result
+
+
+def flood_trips(label, fn, full):
+    """One call of a jump-flood wrapper under torch.profiler: how many
+    kernels named jfa_* it launched (the design launches full + 1) and each
+    one's device time in microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trips = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "jfa_" in e.name]
+    log(f"{label}: {len(trips)} jfa_* launches per call (full + 1 = {full + 1}); device us per "
+        f"trip: {', '.join(f'{us:.1f}' for us in trips)}; sum {sum(trips):.1f} us")
+    return dict(launches_per_call=len(trips), us=trips)
 
 
 def check_new_kernels(model, device):
@@ -252,6 +280,12 @@ def check_new_kernels(model, device):
         "jfa_seed", f"flagship landing mask, full rounds={full}",
         lambda: jfa.nearest_seed(valid, None), lambda: jfa.nearest_seed_plain(valid, None),
         px * (1 + 4) / HBM_BYTES_PER_S * 1e3), rounds=full)
+    res["jfa_relpay"]["trips"] = flood_trips(
+        f"jfa_relpay flagship inverse_grid_index, rounds={n_rounds}",
+        lambda: jfa.nearest_payload_packed(valid, task_idx, pay_bits, rounds), full)
+    res["jfa_payload"]["trips"] = flood_trips(
+        f"jfa_payload flagship inverse_grid_index, rounds={full}",
+        lambda: jfa.nearest_payload(valid, task_idx, None), full)
 
     tidx = jfa.nearest_payload_packed(valid, task_idx, pay_bits, rounds)
     seeds = jfa.nearest_seed(valid, None)
@@ -470,6 +504,8 @@ def main() -> int:
             "kernel_ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": "bytes", "library_ms": n["library_ms"], "rounds": n.get("rounds"),
         })
+        if "trips" in n:
+            kernels[-1]["launches_per_call"] = n["trips"]["launches_per_call"]
     log(json.dumps({"serving": serving, "scoremap": scoremap,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)

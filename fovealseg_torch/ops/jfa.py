@@ -18,7 +18,10 @@ full = ceil(log2(max(H, W))), rounds+1 trips with step
 ``max((1 << (rounds-1)) >> i, 1)``, the 8 directions applied in sequence
 within a trip, out-of-range candidates invalid, strict ``<`` on the squared
 integer distance, 0 where no seed exists. The modes differ only in what is
-read at the winning seed, so one flood serves them all.
+read at the winning seed, so one flood serves them all. The kernel runs one
+launch per trip, all 8 directions in shared memory on tiles of the stride-k
+sublattice (``tile_shape``); ``tests/test_torch_port_jfa.py`` emulates its
+tiles on the CPU.
 
 Each kernel's launch count is ``<wrapper>.launches``: one per call that
 launched it.
@@ -42,6 +45,50 @@ REL_MAX_ROUNDS = 7
 def full_rounds(h: int, w: int) -> int:
     """The full jump-flood round count of an H x W canvas."""
     return max(1, math.ceil(math.log2(max(h, w))))
+
+
+# The CUDA flood's tiles (Ry, Rx, TA, TB, halo), mirrored by csrc/jfa.cu's
+# tile(): each step's own tiles (halo 3) by log2(k), k >= 32 sharing the last
+# of them, then whole-class tiles (halo 1) for where a class fits the window.
+TILES = ((1, 1, 72, 92, 3), (1, 2, 40, 80, 3), (1, 4, 32, 40, 3), (1, 8, 16, 40, 3),
+         (1, 16, 13, 20, 3), (1, 32, 10, 10, 3),
+         (4, 32, 5, 5, 1), (1, 32, 10, 10, 1), (1, 8, 20, 20, 1), (1, 4, 40, 40, 1))
+OWN_TILES = 6
+THREADS = 1024  # the kernel's block: a tile's cells are taken in whole rounds of it
+# A residue class whose extent is at most one of these is flooded whole by
+# one thread, in registers
+REGISTER_CLASSES = (2, 3)
+
+
+def _tile_cost(tile, k: int, h: int, w: int) -> int | None:
+    """Cells one image's trip computes with ``tile``, None where it does not
+    apply (more classes than the step has, or a halo-1 window short of a
+    class)."""
+    ry, rx, ta, tb, halo = tile
+    ea, eb = -(-h // k), -(-w // k)
+    if ry > k or rx > k or (halo == 1 and (ta < ea or tb < eb)):
+        return None
+    tiles = -(-min(k, h) // ry) * -(-min(k, w) // rx) * -(-ea // ta) * -(-eb // tb)
+    return tiles * -(-ry * rx * (ta + 2 * halo) * (tb + 2 * halo) // THREADS) * THREADS
+
+
+def tile_shape(k: int, h: int, w: int) -> tuple[int, int, int, int, int]:
+    """(Ry, Rx, TA, TB, halo) of one trip's tiles at step k on an H x W
+    canvas: blocks of Ry x Rx residue classes mod k, each a TA x TB window of
+    its stride-k sublattice with a halo of 3 cells, or of 1 where the window
+    holds the whole class. The cheapest that applies, the step's own on a
+    tie; a class flooded whole by one thread is (1, 1, E, E, 1)."""
+    extent = -(-max(h, w) // k)
+    for e in REGISTER_CLASSES:
+        if extent <= e:
+            return 1, 1, e, e, 1
+    best = TILES[min(k.bit_length() - 1, OWN_TILES - 1)]
+    cost = _tile_cost(best, k, h, w)
+    for tile in TILES[OWN_TILES:]:
+        c = _tile_cost(tile, k, h, w)
+        if c is not None and c < cost:
+            best, cost = tile, c
+    return best
 
 
 def _check(valid: torch.Tensor, payload: torch.Tensor | None = None, cls_bits: int | None = None,

@@ -121,6 +121,33 @@ def test_payload_and_seed_kernels_bit_equal_to_plain(dev, shape, p_hole, rounds)
     torch.testing.assert_close(k4.cpu(), jfa.nearest_seed_plain(valid, _host(r)), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1000), (9, 1000, 1), (2, 31, 33), (1, 65, 1000),
+                                   (9, 65, 31), (3, 33, 65), (1, 7, 9), (9, 100, 31)])
+@pytest.mark.parametrize("rounds", ["1", "full", "full+2", "device 1", "device full"])
+def test_flood_tile_edges_bit_equal_to_plain(dev, shape, rounds):
+    """K1-K4 on canvases that cut the flood's tiles and residue classes at
+    every edge: sides of 1, 31, 33, 65 and 1000, a canvas narrower than one
+    tile, b = 1 and b = 9, and device-scalar round counts of 1 and full."""
+    b, h, w = shape
+    valid, cls = _case(shape, 0.97 if h * w > 1000 else 0.8, seed=h * 7 + w)
+    valid[0] = False  # an image with no seed
+    full = full_rounds(h, w)
+    r = {"1": 1, "full": full, "full+2": full + 2}.get(rounds)
+    if rounds.startswith("device"):
+        r = torch.tensor(1 if rounds.endswith("1") else full, dtype=torch.int32, device=dev)
+    wide = cls * 40000 + 7
+    v, c = valid.to(dev), cls.to(dev)
+    outs = {"k1": nearest_class(v, c, 6, r), "k2": jfa.nearest_payload_packed(v, c, 13, r),
+            "k3": jfa.nearest_payload(v, wide.to(dev), r), "k4": jfa.nearest_seed(v, r)}
+    torch.cuda.synchronize()
+    refs = {"k1": nearest_class_plain(valid, cls, 6, _host(r)),
+            "k2": jfa.nearest_payload_packed_plain(valid, cls, 13, _host(r)),
+            "k3": jfa.nearest_payload_plain(valid, wide, _host(r)),
+            "k4": jfa.nearest_seed_plain(valid, _host(r))}
+    for name, out in outs.items():
+        torch.testing.assert_close(out.cpu(), refs[name], rtol=0, atol=0, msg=name)
+
+
 def test_payload_packed_routes_host_rounds_past_seven_to_k3(dev):
     valid, pay = _case((2, 256, 256), 0.99, 7)
     before = (jfa.nearest_payload_packed.launches, jfa.nearest_payload.launches)

@@ -2,7 +2,9 @@
 
 ``nearest_class_plain`` (the CPU path of ``fovealseg_torch.ops.jfa``) must be
 bit-equal to ``nearest_class_pallas`` run in interpret mode, as the JAX
-package's own kernel tests run it: integer outputs, no tolerance.
+package's own kernel tests run it: integer outputs, no tolerance. The CUDA
+kernel's tiled trips, emulated with numpy, must be bit-equal to the plain
+flood (the second half of this file).
 """
 
 import jax.numpy as jnp
@@ -15,7 +17,8 @@ from fovealseg_tpu.core.grid import landing_scatter_max as jax_landing_scatter_m
 from fovealseg_tpu.core.grid import pad_saliency as jax_pad_saliency
 from fovealseg_tpu.core.unwarp import nearest_seed_payload
 from fovealseg_tpu.ops.pallas_jfa import nearest_class_pallas
-from fovealseg_torch.ops.jfa import full_rounds, nearest_class, nearest_class_plain
+from fovealseg_torch.ops.jfa import (_flood_plain, full_rounds, nearest_class, nearest_class_plain,
+                                    tile_shape)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -152,3 +155,168 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         cls_bits = 0
     with pytest.raises(ValueError):
         nearest_class(v, c, cls_bits)
+
+
+# --- the CUDA flood's tiles, emulated on the CPU ------------------------------
+#
+# csrc/jfa.cu runs one launch per trip: a tile is a block of Ry x Rx residue
+# classes mod k and a TA x TB window of their stride-k sublattice, loaded with
+# a 3-cell halo (1 where the window holds whole classes) into a flat shared
+# array (t fastest, then b, a, u) and updated
+# by the 8 directions in order, each a Jacobi step over the whole tile; cells
+# off the canvas hold -1 and are never updated, and only the window's own
+# cells are written back. The helpers below do exactly that with numpy, with
+# the kernel's layout (a neighbour is the cell at a fixed flat offset, so a
+# halo cell at the tile's edge reads another class or the -1 padding), and
+# hold the result bit-equal to the plain flood.
+
+_DIRS = [(sy, sx) for sy in (-1, 0, 1) for sx in (-1, 0, 1) if (sy, sx) != (0, 0)]
+
+
+def _d2(seed, y, x):
+    return ((seed >> 16) - y) ** 2 + ((seed & 0xFFFF) - x) ** 2
+
+
+def _tiled_trip(state, k, shape, update_off_canvas=False):
+    """One trip at step k over [B, H, W] seed positions ((y << 16) | x, or
+    -1), tile by tile with tiles (Ry, Rx, TA, TB, halo)."""
+    bsz, h, w = state.shape
+    ry, rx, ta, tb, halo = shape
+    assert k % ry == 0 and k % rx == 0, "a tile's classes must be distinct mod k"
+    assert halo == 3 or (ta >= -(-h // k) and tb >= -(-w // k)), "halo 1 needs whole classes"
+    tas, tbs = ta + 2 * halo, tb + 2 * halo
+    u, a, b, t = (g.ravel() for g in np.meshgrid(np.arange(ry), np.arange(tas), np.arange(tbs),
+                                                  np.arange(rx), indexing="ij"))
+    n = u.size
+    pad = tbs * rx + rx  # the kernel's padding: a neighbour's offset is at most this
+    cells = pad + np.arange(n)
+    window = (a >= halo) & (a < halo + ta) & (b >= halo) & (b < halo + tb)
+    out = np.full_like(state, -1)
+    written = np.zeros(state.shape, np.int64)
+    for img in range(bsz):
+        for ry0 in range(0, min(k, h), ry):
+            for rx0 in range(0, min(k, w), rx):
+                for a0 in range(0, -(-h // k), ta):
+                    for b0 in range(0, -(-w // k), tb):
+                        y = ry0 + u + k * (a0 - halo + a)
+                        x = rx0 + t + k * (b0 - halo + b)
+                        on = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+                        cur = np.where(on, state[img, y.clip(0, h - 1), x.clip(0, w - 1)], -1)
+                        best = np.where(cur >= 0, _d2(cur, y, x), 2**31 - 1)
+                        live = on | update_off_canvas
+                        s = np.full(n + 2 * pad, -1, np.int64)
+                        for sy, sx in _DIRS:
+                            s[cells] = cur
+                            cand = s[cells + (sy * tbs + sx) * rx]
+                            d = _d2(cand, y, x)
+                            win = live & (cand >= 0) & (d < best)
+                            cur, best = np.where(win, cand, cur), np.where(win, d, best)
+                        keep = window & on
+                        out[img, y[keep], x[keep]] = cur[keep]
+                        written[img, y[keep], x[keep]] += 1
+    assert (written == 1).all(), "every pixel lies in exactly one tile's window"
+    return out
+
+
+def _flood_tiled(valid, rounds, shape_of=tile_shape, update_off_canvas=False):
+    """The kernel's trips: seeds from ``valid``, then r + 1 tiled trips."""
+    _, h, w = valid.shape
+    r = min(max(rounds, 1), full_rounds(h, w))
+    ys, xs = np.mgrid[0:h, 0:w]
+    state = np.where(valid, (ys << 16) | xs, -1).astype(np.int64)
+    for i in range(r + 1):
+        k = max((1 << (r - 1)) >> i, 1)
+        state = _tiled_trip(state, k, shape_of(k, h, w), update_off_canvas)
+    return state
+
+
+def _flood_plain_words(valid, rounds):
+    sy, sx = _flood_plain(torch.from_numpy(valid), rounds)
+    sy, sx = sy.numpy().astype(np.int64), sx.numpy().astype(np.int64)
+    return np.where(sy >= 0, (sy << 16) | sx, -1)
+
+
+def _random_canvas(seed):
+    """A random mask of a random odd, non-square or one-pixel-wide shape, with
+    an empty batch element, and a random round count in [1, full + 2]."""
+    rng = np.random.default_rng(1000 + seed)
+    h, w = [(1, 37), (29, 1), (5, 5), (70, 70), (33, 65), (1, 1)][seed] if seed < 6 else \
+        rng.integers(5, 71, 2)
+    valid = rng.uniform(0, 1, (3, h, w)) > rng.choice([0.7, 0.95, 0.995])
+    valid[1] = False  # an image with no seed
+    valid[2, rng.integers(h), rng.integers(w)] = True
+    return valid, int(rng.integers(1, full_rounds(h, w) + 3))
+
+
+@pytest.mark.parametrize("seed", range(30))
+def test_tiled_trips_bit_equal_to_plain(seed):
+    """The kernel's own tiles (``tile_shape``) on 30 random canvases from 1x1
+    to 70x70 (the first six fixed: 1 pixel wide or tall, odd, non-square)."""
+    valid, rounds = _random_canvas(seed)
+    np.testing.assert_array_equal(_flood_tiled(valid, rounds), _flood_plain_words(valid, rounds))
+
+
+@pytest.mark.parametrize("ry,rx,ta,tb", [(1, 1, 1, 1), (2, 1, 2, 3), (1, 2, 5, 2), (2, 4, 3, 7),
+                                         (4, 2, 9, 4), (1, 8, 1, 13)])
+@pytest.mark.parametrize("seed", [3, 4, 7, 11])
+def test_tiled_trips_any_tile_shape(ry, rx, ta, tb, seed):
+    """Windows from 1x1 up, with as many classes per tile as the step allows,
+    and a halo of 1 wherever the window holds whole classes: every tile shape
+    gives the plain flood's winners."""
+    valid, rounds = _random_canvas(seed)
+    valid = valid[:, :24, :36]
+    rounds = min(rounds, full_rounds(*valid.shape[1:]) + 2)
+
+    def shape_of(k, h, w):
+        whole = ta >= -(-h // k) and tb >= -(-w // k)
+        return min(ry, k), min(rx, k), ta, tb, 1 if whole else 3
+
+    np.testing.assert_array_equal(_flood_tiled(valid, rounds, shape_of),
+                                  _flood_plain_words(valid, rounds))
+
+
+def test_off_canvas_cells_are_never_updated():
+    """The trap of the tiled design. One seed at (0, 6), one step inside the
+    right border of a 2 x 8 canvas; rounds 1 gives two trips of step 1, which
+    reach (0, 0) but not (1, 0). A tile holds the canvas and a 3-cell ring
+    around it. If the ring's off-canvas cells took part, row 2 (below the
+    canvas) would relay the seed: in the first trip (1, 6) -> (2, 5) by
+    direction (-1, 1), -> (2, 4) by (0, 1), -> (1, 3) by (1, 1), a pixel the
+    flood reaches only in the second trip; in the second, (1, 3) -> (2, 2) ->
+    (2, 1) -> (1, 0) the same way. Each step reads a candidate that the
+    sequential semantics treat as off the canvas."""
+    valid = np.zeros((1, 2, 8), bool)
+    valid[0, 0, 6] = True
+    seed = (0 << 16) | 6
+    plain = _flood_plain_words(valid, 1)
+    assert plain[0, 0, 0] == seed and plain[0, 1, 0] == -1
+    np.testing.assert_array_equal(_flood_tiled(valid, 1), plain)
+    np.testing.assert_array_equal(_flood_tiled(valid, 1, update_off_canvas=True)[0, 1],
+                                  [seed] * 8)
+    state = np.where(valid, seed, -1).astype(np.int64)
+    shape = tile_shape(1, 2, 8)
+    assert shape[4] == 3  # the canvas fits one tile, its border cells in the halo
+    assert _tiled_trip(state, 1, shape)[0, 1, 3] == -1
+    assert _tiled_trip(state, 1, shape, update_off_canvas=True)[0, 1, 3] == seed
+
+
+def test_tile_table_mirrored_in_kernel_source():
+    """``tile_shape`` is the emulation's tile choice; csrc/jfa.cu's tile table,
+    block size and whole-class sizes must be the same, and the choice must
+    fall where the kernel's note says at 640x640."""
+    import re
+    from pathlib import Path
+
+    from fovealseg_torch.ops.jfa import REGISTER_CLASSES, THREADS, TILES
+
+    src = (Path(__file__).resolve().parent.parent / "fovealseg_torch" / "csrc" / "jfa.cu").read_text()
+    table = re.search(r"constexpr Tile tile\(int i\) \{(.*?)\n\}", src, re.S).group(1)
+    assert tuple(tuple(map(int, t)) for t in re.findall(
+        r"Tile\{(\d+), (\d+), (\d+), (\d+), (\d+)\}", table)) == TILES
+    assert int(re.search(r"constexpr int kThreads = (\d+);", src).group(1)) == THREADS
+    whole = re.findall(r"if \(extent <= (\d)\) return flood_classes<(\d)>", src)
+    assert [(int(e), int(f)) for e, f in whole] == [(e, e) for e in REGISTER_CLASSES]
+    at640 = {k: tile_shape(k, 640, 640) for k in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)}
+    assert at640 == {1: TILES[0], 2: TILES[1], 4: TILES[2], 8: TILES[3], 16: TILES[9],
+                     32: TILES[8], 64: TILES[7], 128: TILES[6], 256: (1, 1, 3, 3, 1),
+                     512: (1, 1, 2, 2, 1)}
