@@ -7,18 +7,22 @@ Phases (any failure exits non-zero):
      from ``fovealseg_torch/csrc`` with nvcc (one process per source, started
      together) and their ``-Xptxas -v`` reports;
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, bit-equal, with CUDA-event times, the
-     byte bound and, where one PyTorch call computes the same function, that
-     call's time; K1 also at rounds=1 and on a 65x1000 canvas; the jump
-     flood's launches per call and per-trip device times from torch.profiler;
+     shapes the main path gives it, bit-equal, with CUDA-event times (one
+     call on an idle stream, and back to back), device times from
+     torch.profiler, the byte bound and, where PyTorch computes the same
+     function, its time both ways (K5: ``index_select`` from the ready int64
+     flat indices, and from the int32 index map); K1 also at rounds=1 and on
+     a 65x1000 canvas; K5 at C = 51, 1, 2 and 3; the jump flood's launches
+     per call and per-trip device times;
   3. the main paths at full flagship width (HRNetV2-nodownsp + C1, 640x640
      canvas -> 80x80 task, 51 classes, random weights from a seed), each with
      every kernel's launch count set to 0 just before it and read just after:
      a. argmax serving: the serving CLI's entry point at b8, then
         ``infer(argmax_labels=True)`` at b8 and b1 in float32 and bfloat16;
         a served batch is recomputed on the host through the plain versions
-        and must be bit-equal; a small input is held against the same
-        weights on the host;
+        and must be bit-equal, and a served bf16 batch's warped image must
+        equal the host's warp at the served grid bit for bit; a small input
+        is held against the same weights on the host;
      b. score maps and round trips: ``infer(argmax_labels=False)`` at b8 and
         b1 in float32 and bfloat16, one b8 call with the label and image
         round trips, one b2 call with ``rev_deform_interp='BI'`` and one b8
@@ -44,24 +48,6 @@ CANVAS = 640
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_time(fn, n: int, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``n`` runs, each between two CUDA
-    events on the current stream."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def setup():
@@ -145,10 +131,16 @@ def check_counts(label, counts, expected):
         raise AssertionError(f"{label}: expected launches {expected}, counted {counts}")
 
 
-def hold(name, label, kernel, plain, bound_ms, library=None, n=20):
+def hold(name, label, kernel, plain, bound_ms, libraries=None, n=20):
     """Run ``kernel`` and ``plain`` once, require bit-equal outputs, then
-    time both (and ``library`` when given). Returns the numbers."""
+    time both: the kernel in CUDA events around one call on an idle stream
+    (``ms``), over back-to-back calls (``loop_ms``) and as the sum of its
+    kernels' device times under torch.profiler (``device_ms``); each of
+    ``libraries`` ({name: fn}, the first one is ``library``) in events and
+    device time. Returns the numbers."""
     import torch
+
+    from fovealseg_torch.tools.profile_gather import device_ms, events_ms, loop_ms
 
     k_out = kernel()
     torch.cuda.synchronize()
@@ -163,14 +155,20 @@ def hold(name, label, kernel, plain, bound_ms, library=None, n=20):
                              f"{(k_out != ref).sum().item()} elements differ")
     del k_out, ref
     err = 0.0  # bit-equal, so every element's difference is 0
-    ms = cuda_time(kernel, n)
-    plain_ms = cuda_time(plain, n, warmup=1)
-    library_ms = cuda_time(library, n) if library is not None else None
-    log(f"{name} [{label}]: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        + (f"library {library_ms:.4f} ms, " if library_ms is not None else "")
+    ms = events_ms(kernel, n)
+    dev_ms = device_ms(kernel, n)[0]
+    lp_ms = loop_ms(kernel, n)
+    plain_ms = events_ms(plain, n, warmup=1)
+    libs = {lib: {"ms": events_ms(fn, n), "device_ms": device_ms(fn, n)[0]}
+            for lib, fn in (libraries or {}).items()}
+    library_ms = next(iter(libs.values()))["ms"] if libs else None
+    log(f"{name} [{label}]: bit-equal; kernel {ms:.4f} ms events, {lp_ms:.4f} ms back to back, "
+        f"{dev_ms:.4f} ms device; plain {plain_ms:.4f} ms; "
+        + "".join(f"{lib} {v['ms']:.4f} ms events, {v['device_ms']:.4f} ms device; "
+                  for lib, v in libs.items())
         + f"bound {bound_ms:.4f} ms (bytes)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms,
-                max_abs_err=err, bit_equal=True)
+    return dict(ms=ms, device_ms=dev_ms, loop_ms=lp_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=library_ms, libraries=libs, max_abs_err=err, bit_equal=True)
 
 
 def check_jfa(model, device):
@@ -293,22 +291,34 @@ def check_new_kernels(model, device):
     grid_inv = grid_from_index(task_idx, valid, (th, tw))
     grid_inv = torch.where(torch.isnan(grid_inv), 0.0, grid_inv).reshape(b, h * w, 2)
     y_task = torch.randint(0, 51, (b, p2.shape[1], 1), generator=gen, dtype=torch.int32).to(device)
+    image = (x.reshape(b, h * w, 3) * valid.reshape(b, h * w, 1)).contiguous()
     cases = [(f"score map {list(p2.shape)} at K2's output", p2, tidx),
              (f"labels int32 {list(y_task.shape)} at K2's output", y_task, tidx),
              (f"filled grid {list(grid_inv.shape)} at K4's output", grid_inv.contiguous(),
-              seeds.reshape(b, h * w))]
+              seeds.reshape(b, h * w)),
+             (f"image {list(image.shape)} at K4's output", image, seeds.reshape(b, h * w))]
+    res["row_gather"] = {"cases": []}
     for label, table, idx in cases:
         t_rows, c = table.shape[1], table.shape[2]
         flat = (idx.reshape(b, -1).long().clamp(0, t_rows - 1)
                 + torch.arange(b, device=device).view(b, 1) * t_rows).reshape(-1)
+        off32 = torch.arange(b, device=device, dtype=torch.int32).view(b, 1) * t_rows
         table2 = table.reshape(-1, c)
+        idx2 = idx.reshape(b, -1)
         r = hold("row_gather", label, lambda: gather.row_gather(table, idx),
                  lambda: gather.row_gather_plain(table, idx),
                  (idx.numel() * c * 4 + idx.numel() * 4 + table.numel() * 4)
                  / HBM_BYTES_PER_S * 1e3,
-                 library=lambda: torch.index_select(table2, 0, flat))
-        if "row_gather" not in res:  # the score map: the main path's largest gather
-            res["row_gather"] = r
+                 libraries={"index_select": lambda: torch.index_select(table2, 0, flat),
+                            "index_select_int32": lambda: torch.index_select(
+                                table2, 0, (idx2 + off32).view(-1))})
+        out_k = gather.row_gather(table, idx)
+        r["variant"] = gather.VARIANT_NAMES[gather.gather_variant(
+            c, idx2.shape[1], table.data_ptr(), idx.data_ptr(), out_k.data_ptr())]
+        del out_k
+        res["row_gather"]["cases"].append(dict(r, label=label, channels=c))
+        if "ms" not in res["row_gather"]:  # the score map: the main path's largest gather
+            res["row_gather"].update(r)
         res["row_gather"]["max_abs_err"] = max(res["row_gather"]["max_abs_err"], r["max_abs_err"])
     return res
 
@@ -318,10 +328,12 @@ def time_infer(model, device, **kw):
     the host clock. Returns the numbers and the count of calls made."""
     import torch
 
+    from fovealseg_torch.tools.profile_gather import events_ms
+
     x8, f8 = frames(8, CANVAS, SEED + 1, device)
     x1, f1 = frames(1, CANVAS, SEED + 2, device)
-    b8_ms = cuda_time(lambda: model.infer(x8, f8, **kw), 10, warmup=2)
-    b1_ms = cuda_time(lambda: model.infer(x1, f1, **kw), 20, warmup=2)
+    b8_ms = events_ms(lambda: model.infer(x8, f8, **kw), 10, warmup=2)
+    b1_ms = events_ms(lambda: model.infer(x1, f1, **kw), 20, warmup=2)
     host = []
     for _ in range(10):
         t = time.perf_counter()
@@ -359,6 +371,19 @@ def argmax_path(model32, model16, device):
             f"b1 {tm['b1_ms']:.3f} ms (events), {tm['b1_host_ms']:.3f} ms (host clock)")
     counts = read_counts()
     check_counts("the argmax path", counts, {**dict.fromkeys(counts, 0), "jfa_class": calls})
+
+    # one b8 bf16 call: its warp rounds after every op, on the card as on the host
+    from fovealseg_torch.core.warp import grid_sample
+
+    served16 = model16.infer(x, f, argmax_labels=True)
+    calls += 1
+    host16 = grid_sample(x.cpu().to(torch.bfloat16), served16["grid"].cpu())
+    if served16["x_sampled"].dtype != torch.bfloat16 or not torch.equal(
+            host16.view(torch.int16), served16["x_sampled"].cpu().view(torch.int16)):
+        raise AssertionError("served bf16 x_sampled != host recompute of the warp")
+    log("served bf16 x_sampled (b8) bit-equal to the host recompute of the warp "
+        "at the served grid")
+    del served16, host16
 
     label, pred, grid = served["pred_label"], served["pred"], served["grid"]
     if label.shape != (8, CANVAS, CANVAS) or label.dtype != torch.int32:
@@ -501,11 +526,17 @@ def main() -> int:
             "launches": launches, "launches_by_path": {"argmax": argmax_counts[name],
                                                        "scoremap": scoremap_counts[name]},
             "max_abs_err": n["max_abs_err"], "bit_equal": n["bit_equal"], "ms": n["ms"],
-            "kernel_ms": n["ms"], "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
-            "bound_by": "bytes", "library_ms": n["library_ms"], "rounds": n.get("rounds"),
+            "kernel_ms": n["ms"], "device_ms": n["device_ms"], "loop_ms": n["loop_ms"],
+            "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"], "bound_by": "bytes",
+            "library_ms": n["library_ms"], "libraries": n["libraries"], "rounds": n.get("rounds"),
         })
         if "trips" in n:
             kernels[-1]["launches_per_call"] = n["trips"]["launches_per_call"]
+        if "cases" in n:
+            kernels[-1]["cases"] = [{k: c[k] for k in ("label", "channels", "variant", "ms",
+                                                       "device_ms", "loop_ms", "plain_ms",
+                                                       "bound_ms", "libraries")}
+                                    for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)

@@ -3,7 +3,10 @@
 
 As in the JAX package, each axis of a bilinear resize is a dense
 ``[out, in]`` matrix contraction, run in full f32 (no TF32, see
-:func:`full_f32_matmul`) whatever the input's dtype, and cast back.
+:func:`full_f32_matmul`). A float32 input is contracted along H, then W, and
+rounded once. Any other dtype (bfloat16) is rounded where the JAX package
+rounds it: the matrix is cast to the input's dtype, and the result is
+rounded back to that dtype after each axis.
 ``F.interpolate(mode='bilinear', align_corners=False)`` computes the same
 function but rounds its source coordinates in f32, which moves
 non-integer-ratio resizes by up to ~2e-5.
@@ -53,25 +56,32 @@ def full_f32_matmul():
 
 
 @functools.lru_cache(maxsize=64)
-def _resize_matrix(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    """The [out, in] resize matrix as an f32 tensor on ``device``."""
-    return torch.from_numpy(_linear_resize_matrix(in_size, out_size)).to(device)
+def _resize_matrix(in_size: int, out_size: int, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The [out, in] resize matrix as an f32 tensor on ``device``, its
+    entries rounded to ``dtype``."""
+    m = torch.from_numpy(_linear_resize_matrix(in_size, out_size))
+    return m.to(dtype).to(torch.float32).to(device)
 
 
 def _resize(x: torch.Tensor, out_hw: tuple[int, int], h_axis: int) -> torch.Tensor:
     """Resize the axes ``h_axis`` and ``h_axis + 1`` of ``x`` to ``out_hw``."""
     if tuple(x.shape[h_axis:h_axis + 2]) == tuple(out_hw):
         return x
-    y = x.to(torch.float32)
+    per_axis = x.dtype != torch.float32
+    y = x
     with full_f32_matmul():
         for axis, out_size in ((h_axis, out_hw[0]), (h_axis + 1, out_hw[1])):
             if y.shape[axis] == out_size:
                 continue
-            m = _resize_matrix(y.shape[axis], out_size, y.device)
+            m = _resize_matrix(y.shape[axis], out_size, y.device, x.dtype)
+            y = y.to(torch.float32)
             if axis == y.dim() - 1:
                 y = torch.matmul(y, m.t())
             else:
                 y = torch.matmul(m, y.movedim(axis, -2)).movedim(-2, axis)
+            if per_axis:
+                y = y.to(x.dtype)
     return y.to(x.dtype)
 
 

@@ -1,12 +1,17 @@
 """Foveated resampling (counterpart of ``fovealseg_tpu/core/warp.py``).
 
 The JAX package reproduces ``F.grid_sample(padding_mode='zeros',
-align_corners=False)`` by hand on NHWC. Bilinear here is that call on an
-NCHW view. Nearest is computed by hand, as the JAX package pins it: torch's
-own nearest mode rounds half to even on the CPU and half away from zero on
-CUDA, and the clamped grid reaches the tie ix = -0.5 at its border, where
-half away from zero gives -1, i.e. zero padding. The packed-neighbourhood
-form of the JAX package is a TPU gather workaround and has no counterpart.
+align_corners=False)`` by hand on NHWC. Bilinear on a float32 image is that
+call on an NCHW view. On a 2-byte image (bfloat16) the JAX package blends in
+the image's dtype, rounding after every operation
+(``fovealseg_tpu/core/warp.py::_grid_sample_packed``); ``_grid_sample_rounded``
+repeats that arithmetic op by op, so the result is bit-equal. Its single
+packed gather is a TPU gather workaround: four plain gathers of the
+zero-padded image read the same taps. Nearest is computed by hand, as the
+JAX package pins it: torch's own nearest mode rounds half to even on the CPU
+and half away from zero on CUDA, and the clamped grid reaches the tie
+ix = -0.5 at its border, where half away from zero gives -1, i.e. zero
+padding.
 """
 
 from __future__ import annotations
@@ -15,15 +20,32 @@ import torch
 import torch.nn.functional as F
 
 
-def grid_sample_nchw(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of NCHW ``img`` at ``grid`` [B, Ho, Wo, 2] -> NCHW.
+def _grid_sample_rounded(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of NHWC ``img`` in its own (2-byte) dtype, rounded where
+    the JAX package rounds: coordinates and ``floor`` in f32, the fractions
+    cast to ``img.dtype``, each tap weight ``(wy * wx) * aligned`` and each
+    product and partial sum of the four taps rounded in turn. Taps are read
+    from the zero-padded image at the clamped (x0 + 1, y0 + 1), as the JAX
+    package's packed gather reads them, so off-canvas taps are zeros."""
+    b, h, w, c = img.shape
+    dt = img.dtype
+    ix = ((grid[..., 0].float() + 1.0) * w - 1.0) / 2.0
+    iy = ((grid[..., 1].float() + 1.0) * h - 1.0) / 2.0
+    x0f, y0f = torch.floor(ix), torch.floor(iy)
+    x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
+    wx1, wy1 = (ix - x0f).to(dt), (iy - y0f).to(dt)
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    aligned = ((x0 >= -1) & (x0 < w) & (y0 >= -1) & (y0 < h)).to(dt)
+    padded = F.pad(img, (0, 0, 1, 1, 1, 1)).reshape(b, (h + 2) * (w + 2), c)
+    corner = (y0 + 1).clamp(0, h) * (w + 2) + (x0 + 1).clamp(0, w)
 
-    Coordinates and taps are computed in f32 whatever ``img``'s dtype (as
-    the JAX package computes the coordinates in f32); the result is cast back
-    to ``img``'s dtype."""
-    out = F.grid_sample(img.float(), grid.float(), mode="bilinear",
-                        padding_mode="zeros", align_corners=False)
-    return out.to(img.dtype)
+    def tap(offset: int, weight: torch.Tensor) -> torch.Tensor:
+        flat = (corner + offset).reshape(b, -1, 1).expand(-1, -1, c)
+        v = torch.gather(padded, 1, flat).reshape(*grid.shape[:3], c)
+        return v * (weight * aligned)[..., None]
+
+    return (tap(0, wy0 * wx0) + tap(1, wy0 * wx1)
+            + tap(w + 2, wy1 * wx0) + tap(w + 3, wy1 * wx1))
 
 
 def _round_half_away(v: torch.Tensor) -> torch.Tensor:
@@ -50,4 +72,8 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear") -
         return grid_sample_nearest(img, grid)
     if mode != "bilinear":
         raise ValueError(f"Unsupported grid_sample mode: {mode}")
-    return grid_sample_nchw(img.permute(0, 3, 1, 2), grid).permute(0, 2, 3, 1)
+    if img.element_size() <= 2:
+        return _grid_sample_rounded(img, grid)
+    out = F.grid_sample(img.permute(0, 3, 1, 2), grid.float(), mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    return out.permute(0, 2, 3, 1)

@@ -15,7 +15,8 @@ The eval forward and ``infer`` are ported: argmax labels and full-res score
 maps in every ``rev_deform_interp`` ('nearest', 'BI', 'tri'), and the
 ``y_sampled_reverse`` / ``x_sampled_reverse`` round trips. The
 ``MODEL.uniform_sample`` baselines, ``VAL.F_Xlr_low_scale > 1``, the saliency
-overrides, ``TPU.scoremap_gather_bf16`` and training raise
+overrides (``MODEL.gt_gradient`` passes through when no labels are given, as
+in the JAX package), ``TPU.scoremap_gather_bf16`` and training raise
 ``NotImplementedError`` naming where they go.
 """
 
@@ -43,7 +44,7 @@ from fovealseg_torch.core.unwarp import (
     unwarp_prediction,
     unwarp_prediction_fast,
 )
-from fovealseg_torch.core.warp import grid_sample, grid_sample_nchw
+from fovealseg_torch.core.warp import grid_sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,11 +156,15 @@ class DeformSegmentation(nn.Module):
         return torch.softmax(flat, dim=-1).reshape(b, solver.grid_h, solver.grid_w, 1)
 
     def _apply_overrides(self, xs: torch.Tensor, y=None, xs_override=None) -> torch.Tensor:
-        """The saliency overrides of the JAX module, default path only."""
+        """The saliency overrides of the JAX module. ``MODEL.gt_gradient``
+        replaces the saliency only when labels are given, as the JAX module
+        does (``elif c.gt_gradient and y is not None``); without labels the
+        saliency passes through unchanged."""
         c = self.config
-        if xs_override is not None or c.gt_gradient:
+        if xs_override is not None or (c.gt_gradient and y is not None):
             raise NotImplementedError(
-                "saliency overrides (xs_override, MODEL.gt_gradient) arrive with the training slice")
+                "saliency overrides (xs_override, MODEL.gt_gradient with labels) arrive with "
+                "the training slice")
         if c.uniform_sample != "":
             raise NotImplementedError(
                 "MODEL.uniform_sample baselines arrive with the eval slice")
@@ -177,10 +182,12 @@ class DeformSegmentation(nn.Module):
         return solver.create_grid(xs_hm, task_hw, label_hw)
 
     def _segment(self, x: torch.Tensor, grid: torch.Tensor):
-        """Forward warp + encoder/decoder -> (x_sampled NHWC, pred NHWC f32)."""
-        x_sampled = grid_sample_nchw(x.permute(0, 3, 1, 2), grid).to(self.dtype)
-        pred = self.decoder(self.encoder(x_sampled))
-        return x_sampled.permute(0, 2, 3, 1), pred.permute(0, 2, 3, 1)
+        """Forward warp in the compute dtype + encoder/decoder -> (x_sampled
+        NHWC, pred NHWC). The image is cast before the warp, as the JAX
+        module casts it, so a bf16 warp rounds where the JAX package's does."""
+        x_sampled = grid_sample(x.to(self.dtype), grid)
+        pred = self.decoder(self.encoder(x_sampled.permute(0, 3, 1, 2).contiguous()))
+        return x_sampled, pred.permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, focus_point: torch.Tensor, train: bool = False):

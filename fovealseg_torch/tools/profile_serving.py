@@ -71,7 +71,7 @@ def profile_cell(model, batch: int, calls: int, trace_path: str | None = None,
     wall = float(np.median(walls))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     jfa_ms = sum(v[0] for k, v in by_name.items() if "jfa_" in k)
-    gather_ms = sum(v[0] for k, v in by_name.items() if "row_gather" in k)
+    gather_ms = sum(v[0] for k, v in by_name.items() if "::gather_" in k)  # K5's variants
     return {
         "path": "argmax" if argmax_labels else "scores",
         "batch": batch, "dtype": str(model.dtype).replace("torch.", ""),

@@ -11,7 +11,14 @@ import pytest
 import torch
 
 from fovealseg_torch.ops import jfa
-from fovealseg_torch.ops.gather import row_gather, row_gather_plain
+from fovealseg_torch.ops.gather import (
+    VARIANT_SCALAR,
+    VARIANT_SMALL,
+    VARIANT_WIDE,
+    gather_variant,
+    row_gather,
+    row_gather_plain,
+)
 from fovealseg_torch.ops.jfa import full_rounds, nearest_class, nearest_class_plain
 
 pytestmark = pytest.mark.cuda
@@ -186,14 +193,40 @@ def test_payload_and_seed_kernels_reject_bad_inputs(dev):
         jfa.nearest_seed(v.to(torch.uint8))
 
 
-@pytest.mark.parametrize("b,t,c,hw,dtype", [(8, 6400, 51, (640, 640), torch.float32),
-                                            (8, 6400, 1, (640, 640), torch.int32),
-                                            (2, 4096, 2, (64, 64), torch.float32),
-                                            (3, 100, 300, (17, 23), torch.float32),
-                                            (1, 7, 5, (1, 1), torch.int32)])
-def test_row_gather_bit_equal_to_plain(dev, b, t, c, hw, dtype):
-    """K5 against its plain version, NaN and signed-zero words included, and
-    out-of-range indices clamped as the plain version clamps them."""
+def _at_offset(t: torch.Tensor, offset: int, dev) -> torch.Tensor:
+    """``t`` on the card as a contiguous view at storage offset ``offset``."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t.to(dev))
+    return view
+
+
+@pytest.mark.parametrize("b,t,c,hw,dtype,offset", [
+    (8, 6400, 51, (640, 640), torch.float32, None),  # the score map: wide
+    (8, 6400, 1, (640, 640), torch.int32, None),  # labels: small
+    (8, 409600, 2, (640, 640), torch.float32, None),  # the filled grid: small
+    (8, 409600, 3, (640, 640), torch.float32, None),  # an image: small
+    (2, 4096, 2, (64, 64), torch.float32, None),
+    (2, 33, 4, (8, 8), torch.int32, None),  # small, 16-byte rows
+    (2, 300, 5, (8, 10), torch.float32, None),  # wide at its least C
+    (3, 100, 300, (17, 23), torch.float32, None),  # wide, a chunk past a row's end
+    (1, 7, 5, (1, 1), torch.int32, None),  # scalar: n * c % 4 != 0
+    (3, 50, 4, (9, 7), torch.float32, None),  # scalar: pixels not a multiple of 4
+    (2, 33, 3, (5, 7), torch.float32, None),
+    (2, 300, 5, (9, 11), torch.float32, None),
+    (2, 300, 51, (13, 17), torch.float32, None),
+    (2, 1000, 1, (31, 33), torch.int32, None),
+    (2, 4096, 2, (64, 64), torch.float32, "table"),  # storage offset 1: scalar
+    (2, 4096, 4, (64, 64), torch.float32, "table"),
+    (2, 100, 1, (64, 64), torch.int32, "idx"),
+    (2, 4096, 3, (64, 64), torch.float32, "both"),
+    (2, 6400, 51, (80, 80), torch.float32, "both"),  # wide: only the output must align
+])
+def test_row_gather_bit_equal_to_plain(dev, b, t, c, hw, dtype, offset):
+    """K5 against its plain version in each of its variants: NaN and
+    signed-zero words, indices out of range (clamped as the plain version
+    clamps them), pixel counts that are not multiples of 4, and tables and
+    index maps at storage offset 1."""
     g = torch.Generator().manual_seed(b * t + c)
     if dtype == torch.float32:
         table = torch.randn((b, t, c), generator=g)
@@ -202,13 +235,39 @@ def test_row_gather_bit_equal_to_plain(dev, b, t, c, hw, dtype):
     else:
         table = torch.randint(-2**31, 2**31 - 1, (b, t, c), generator=g, dtype=torch.int32)
     idx = torch.randint(-3, t + 3, (b, *hw), generator=g, dtype=torch.int32)
+    table_d = _at_offset(table, 1 if offset in ("table", "both") else 0, dev)
+    idx_d = _at_offset(idx, 1 if offset in ("idx", "both") else 0, dev)
+    ref = row_gather_plain(table, idx)
+    n = idx[0].numel()
     before = row_gather.launches
-    out = row_gather(table.to(dev), idx.to(dev))
+    out = row_gather(table_d, idx_d)
     torch.cuda.synchronize()
     assert row_gather.launches == before + 1
-    ref = row_gather_plain(table, idx)
     assert out.shape == ref.shape and out.dtype == dtype
     assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+    chosen = gather_variant(c, n, table_d.data_ptr(), idx_d.data_ptr(), out.data_ptr())
+    if c <= 4:
+        small = n % 4 == 0 and offset is None
+        assert chosen == (VARIANT_SMALL if small else VARIANT_SCALAR)
+    else:
+        assert chosen == (VARIANT_WIDE if n * c % 4 == 0 else VARIANT_SCALAR)
+
+
+@pytest.mark.parametrize("c", [2, 51])
+def test_row_gather_64bit_table_offsets(dev, c):
+    """T * C >= 2^31 words (an 8.6 GB table): the kernel's per-image row
+    offsets go 64-bit. Held against the plain version on the card."""
+    t = 2**31 // c + 8
+    table = torch.randint(-2**31, 2**31 - 1, (1, t, c), dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(c)
+    idx = torch.randint(0, t, (1, 4096), generator=g, dtype=torch.int32)
+    idx[0, :64] = torch.arange(t - 64, t, dtype=torch.int32)  # the table's last rows
+    idx = idx.to(dev)
+    out = row_gather(table, idx)
+    ref = row_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    del table
 
 
 def test_row_gather_rejects_bad_inputs(dev):
@@ -222,6 +281,34 @@ def test_row_gather_rejects_bad_inputs(dev):
         row_gather(table.to(torch.float16), idx)
     with pytest.raises(ValueError):
         row_gather(table, idx.to(torch.int64))
+    # the C entry point refuses a variant whose conditions do not hold
+    # (cudaErrorInvalidValue = 1) and launches nothing
+    from fovealseg_torch.ops.gather import _kernel
+
+    wide = torch.randn((2, 10, 51), device=dev)
+    out = torch.empty((2, 20, 51), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _kernel()(wide.data_ptr(), idx.data_ptr(), out.data_ptr(), 2, 20, 10, 51,
+                     VARIANT_SMALL, stream) == 1
+    odd = _at_offset(torch.zeros((2, 4), dtype=torch.int32), 1, dev)
+    assert _kernel()(table.data_ptr(), odd.data_ptr(), out.data_ptr(), 2, 4, 10, 3,
+                     VARIANT_SMALL, stream) == 1
+    assert _kernel()(table.data_ptr(), odd.data_ptr(), out.data_ptr(), 2, 4, 10, 3,
+                     VARIANT_SCALAR, stream) == 0
+
+
+def test_bf16_warp_on_card_matches_host(dev):
+    """The bf16 forward warp rounds after every operation on the card as on
+    the host: bit-equal."""
+    from fovealseg_torch.core.warp import grid_sample
+
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 640, 640, 3)).astype(np.float32))
+    grid = torch.from_numpy(rng.uniform(-1.05, 1.05, (2, 80, 80, 2)).astype(np.float32))
+    got = grid_sample(img.to(dev).to(torch.bfloat16), grid.to(dev))
+    ref = grid_sample(img.to(torch.bfloat16), grid)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu().view(torch.int16), ref.view(torch.int16))
 
 
 def test_tiny_scoremap_slice_on_card_matches_host(dev):

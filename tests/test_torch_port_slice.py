@@ -135,7 +135,9 @@ def test_later_slices_raise(branch):
     """What is still unported raises. The score map, 'BI'/'tri' and the round
     trips are ported (test_torch_port_scoremap.py); their
     ``MODEL.uniform_sample`` variants (the JAX package's resize branches of
-    the same outputs) arrive with the eval slice."""
+    the same outputs) arrive with the eval slice. ``MODEL.gt_gradient``
+    raises only with labels: without them it passes the saliency through
+    (test_gt_gradient_without_labels_passes_through)."""
     cfg = dict(TINY)
     cfg.update({"scoremap": {"uniform_sample": "nearest"},
                 "tri": {"rev_deform_interp": "tri", "uniform_sample": "BI"},
@@ -147,13 +149,42 @@ def test_later_slices_raise(branch):
     x, f = torch.zeros((1, 64, 64, 3)), torch.full((1, 2), 0.5)
     kwargs = {"scoremap": dict(argmax_labels=False), "tri": dict(argmax_labels=False),
               "y_reverse": dict(argmax_labels=True, y_sampled_reverse=True, y=x[..., 0]),
-              "x_reverse": dict(argmax_labels=True, x_sampled_reverse=True)}.get(
+              "x_reverse": dict(argmax_labels=True, x_sampled_reverse=True),
+              "gt_gradient": dict(argmax_labels=True, y=x[..., 0].to(torch.int32))}.get(
                   branch, dict(argmax_labels=True))
     with pytest.raises(NotImplementedError):
         if branch == "train":
             model(x, f, train=True)
         else:
             model.infer(x, f, **kwargs)
+
+
+def test_gt_gradient_without_labels_passes_through(both):
+    """``MODEL.gt_gradient`` with ``y=None``: the JAX module applies the
+    label-edge override only when labels are given, so it serves the default
+    path. The port does the same: its output equals its default output bit
+    for bit, and the JAX package's gt_gradient output within the slice's
+    tolerances (the grid to 1e-5, labels on >= 99.5% of pixels)."""
+    jax_default, default, _, _ = both
+    rng = np.random.default_rng(21)
+    x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    f = rng.uniform(0.2, 0.8, (2, 2)).astype(np.float32)
+    jm = JaxDeform(config=JaxConfig(**TINY, gt_gradient=True))
+    v = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(f))
+    jax_out = jax.tree.map(np.asarray, jm.apply(v, jnp.asarray(x), jnp.asarray(f),
+                                                argmax_labels=True, method=JaxDeform.infer))
+    model = DeformSegmentation(DeformConfig(**TINY, gt_gradient=True), device="cpu")
+    model.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, v["params"]),
+                                             jax.tree.map(np.asarray, v["batch_stats"])),
+                          strict=True)
+    out = {k: t.numpy() for k, t in model.infer(torch.from_numpy(x), torch.from_numpy(f),
+                                                argmax_labels=True).items()}
+    assert set(out) == set(default)
+    for k in out:
+        np.testing.assert_array_equal(out[k], default[k], err_msg=k)
+        np.testing.assert_array_equal(jax_out[k], jax_default[k], err_msg=k)
+    np.testing.assert_allclose(out["grid"], jax_out["grid"], rtol=0, atol=1e-5)
+    assert (out["pred_label"] == jax_out["pred_label"]).mean() >= 0.995
 
 
 def test_scoremap_gather_bf16_raises():
