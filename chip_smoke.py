@@ -29,6 +29,15 @@ Phases (any failure exits non-zero):
         call with ``TPU.jfa_iters=10``; two frames of a served score map are
         recomputed on the host through the plain versions and must be
         bit-equal; a small input is held against the host;
+     c. eval: the eval CLI (``fovealseg_torch.cli.eval.main``) in-process at
+        b8 bfloat16, 3 synthetic batches, with the label round trip, Dice,
+        hd95 and the trimap on; one batch's labels and round trip are
+        recomputed on the host through the plain versions and must be
+        bit-equal, and the card's histograms of that batch must equal the
+        host metric functions' integer for integer; then one b2 batch each
+        of exact 'tri' (held within 1e-5 of the host oracle on one frame),
+        'BI', ``MODEL.uniform_sample='nearest'`` and ``'BI'``; eval frames/s,
+        host ms per sample of the boundary metrics and of the 'tri' plan;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -36,9 +45,11 @@ Phases (any failure exits non-zero):
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -475,6 +486,175 @@ def scoremap_path(model32, model16, device):
     return timings, counts, checks
 
 
+EVAL_FLAGS = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--canvas", str(CANVAS)]
+EVAL_OPTS = ["MODEL.gaussian_radius", "45", "TRAIN.saliency_input_size", "(80,80)",
+             "TRAIN.task_input_size", "(80,80)", "TPU.compute_dtype", "bfloat16"]
+
+
+def check_result(label, result, batches, need=()):
+    """The eval CLI's result: the JAX CLI's keys (and ``need``), finite, in
+    range. hd95 is left out by both CLIs when no frame's prediction has a
+    border."""
+    need = {"mean_iou", "pixel_acc", "num_batches", "per_class_iou", "y_reverse_iou", *need}
+    if not need <= set(result) or result["num_batches"] != batches:
+        raise AssertionError(f"{label}: eval result malformed: {result}")
+    for k in ("mean_iou", "pixel_acc", "dice", "y_reverse_iou", "hd95"):
+        if k in result and not (math.isfinite(result[k]) and result[k] >= 0):
+            raise AssertionError(f"{label}: {k} = {result[k]}")
+    if not all(0 <= result[k] <= 1 for k in ("mean_iou", "pixel_acc", "dice", "y_reverse_iou")
+               if k in result):
+        raise AssertionError(f"{label}: a ratio outside [0, 1]: {result}")
+
+
+def eval_checkpoint(model, device, ckpt_dir) -> None:
+    """Write ``model``'s weights as the 4-file set with the decoder's
+    background head moved, so that the labels split each frame into
+    foreground and background and the metrics are not all zero. On a
+    synthetic batch: the mask conv's bias minus the median of its
+    pre-activation (the mask then spans (-0.5, 0.5) around 0), and the
+    background class's bias plus 8x the largest foreground logit (it wins
+    where the mask passes ~1/8)."""
+    import os
+
+    import torch
+
+    from fovealseg_torch.train.checkpoint import SUBMODULE_OF_FILE
+
+    seen = []
+    hook = model.decoder.conv_last.register_forward_hook(lambda m, i, o: seen.append(o))
+    x, f = frames(8, CANVAS, SEED + 11, device)
+    fg_max = model.infer(x, f, argmax_labels=True)["pred"][..., :50].float().abs().amax()
+    hook.remove()
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sd["decoder.conv_last.bias"] -= seen[0].float().median()
+    sd["decoder.cls_net.fc.bias"][50] += 8.0 * fg_max
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for kind, sub in SUBMODULE_OF_FILE.items():
+        torch.save({k[len(sub) + 1:]: v.cpu() for k, v in sd.items() if k.startswith(sub + ".")},
+                   os.path.join(ckpt_dir, f"{kind}_epoch_0.pth"))
+
+
+def eval_path(card, model16, device, out_dir):
+    """Phase 3c: the eval CLI at full flagship width, then one b2 batch of
+    each other inverse warp the eval reaches, all on one 4-file checkpoint
+    (``eval_checkpoint``)."""
+    import torch
+
+    from fovealseg_torch.cli import eval as cli
+    from fovealseg_torch.core import metrics as M
+    from fovealseg_torch.core.grid import inverse_grid_index
+    from fovealseg_torch.core.unwarp import (
+        jfa_rounds_from_grid,
+        unwarp_argmax_scatter,
+        unwarp_labels_fast,
+    )
+    from fovealseg_torch.native.interp2d import build_fill_plan, unwarp_prediction_tri
+
+    t_phase = time.perf_counter()
+    eval_checkpoint(model16, device, f"{out_dir}/ckpt")
+    ckpt = ["--torch-ckpt", f"{out_dir}/ckpt", "--torch-epoch", "0"]
+    seen, totals = [], [0, 0]
+
+    def keep(out, pred, gt, acc):
+        # the batch's outputs and what the card's accumulator gained from it
+        seen.append((out, pred, gt, acc.inter - totals[0], acc.union - totals[1]))
+        totals[:] = [acc.inter.clone(), acc.union.clone()]
+
+    reset_counts()
+    timing = {}
+    result = cli.main(EVAL_FLAGS + ckpt + ["--num-batches", "3"] + EVAL_OPTS
+                      + ["VAL.batch_size", "8", "VAL.y_sampled_reverse", "True", "VAL.dice", "True",
+                         "VAL.hd95", "True", "VAL.trimap", "True", "DIR", f"{out_dir}/b8"],
+                      timing=timing, on_batch=keep)
+    counts = read_counts()
+    check_counts("the eval path (3 b8 batches)", counts,
+                 {**dict.fromkeys(counts, 0), "jfa_class": 3, "jfa_relpay": 3, "row_gather": 3})
+    check_result("eval b8", result, 3, need=("dice", "trimap_acc"))
+    fps = timing["frames"] / timing["seconds"]
+    log(f"eval b8 bf16: {json.dumps({k: v for k, v in result.items() if k != 'per_class_iou'})}")
+    log(f"eval frames/s {fps:.2f} ({timing['frames']} frames in {timing['seconds']:.3f} s, "
+        f"{timing['note']}) on {card}")
+
+    # one batch recomputed on the host through the plain versions
+    out, pred, gt, d_inter, d_union = seen[-1]
+    seg_hw = (CANVAS, CANVAS)
+    grid = out["grid"]
+    rounds = jfa_rounds_from_grid(grid, seg_hw).cpu()
+    host = unwarp_argmax_scatter(out["pred"].float().cpu(), grid.cpu(), seg_hw, rounds=rounds)
+    if not torch.equal(host, pred.cpu()):
+        raise AssertionError("eval labels != host recompute through the plain jump flood")
+    task_idx, valid = inverse_grid_index(grid.cpu(), seg_hw)
+    yrev = unwarp_labels_fast(out["y_sampled"][..., None].cpu(), task_idx, valid, None,
+                              rounds)[..., 0]
+    if not torch.equal(yrev, out["y_sampled_reverse"].cpu()):
+        raise AssertionError("eval y_sampled_reverse != host recompute through the plain versions")
+    inter, union = M.intersection_and_union(host, gt.cpu(), 51)
+    if not (torch.equal(inter, d_inter.cpu()) and torch.equal(union, d_union.cpu())):
+        raise AssertionError("the card's per-class histograms != the host's")
+    log(f"eval batch 3: labels and label round trip bit-equal to the host recompute "
+        f"(rounds={int(rounds)}); per-class intersection and union equal the host's "
+        f"({int(inter.sum())} / {int(union.sum())} pixels)")
+
+    # host cost per sample of the boundary metrics, on that batch
+    p_np, g_np = host.numpy(), gt.cpu().numpy()
+    host_ms = {}
+    for name, fn in (("dice", lambda b: M.binary_dice(p_np[b] != 50, g_np[b] != 50)),
+                     ("hd95", lambda b: M.hd95(p_np[b] != 50, g_np[b] != 50)),
+                     ("trimap", lambda b: [M.trimap_accuracy(p_np[b], g_np[b], 2 ** i)
+                                           for i in range(6)])):
+        t = time.perf_counter()
+        for b in range(p_np.shape[0]):
+            fn(b)
+        host_ms[name] = (time.perf_counter() - t) * 1e3 / p_np.shape[0]
+    log(f"host ms per 640x640 sample: {json.dumps(host_ms)} (trimap: 6 widths) on {card}")
+    del seen, out, pred, gt
+
+    # one b2 batch of each other inverse warp
+    b2 = ["VAL.batch_size", "2", "VAL.y_sampled_reverse", "True"]
+    configs = {"tri": ["MODEL.rev_deform_interp", "tri", "TPU.tri_exact", "True"],
+               "BI": ["MODEL.rev_deform_interp", "BI"],
+               "uniform_nearest": ["MODEL.uniform_sample", "nearest"],
+               "uniform_BI": ["MODEL.uniform_sample", "BI"]}
+    other_counts, other = dict.fromkeys(counters(), 0), {}
+    for name, opts in configs.items():
+        outs = []
+        reset_counts()
+        res = cli.main(EVAL_FLAGS + ckpt + ["--num-batches", "1"] + EVAL_OPTS + b2 + opts
+                       + ["DIR", f"{out_dir}/{name}"],
+                       on_batch=lambda out, pred, gt, acc: outs.append(out))
+        n = read_counts()
+        log(f"eval b2 {name}: {json.dumps({k: v for k, v in res.items() if k != 'per_class_iou'})}"
+            f"; launches {json.dumps(n)}")
+        if name in ("tri", "BI") and n["jfa_seed"] == 0:
+            raise AssertionError(f"{name}: the seed flood (K4) was launched no time")
+        check_result(f"eval b2 {name}", res, 1)
+        other_counts = {k: other_counts[k] + n[k] for k in n}
+        other[name] = res["mean_iou"]
+        if name == "tri":
+            tri_out = outs[0]
+    valid = ~tri_out["unfilled_mask"].cpu().numpy()
+    t = time.perf_counter()
+    for v in valid:
+        build_fill_plan(v)
+    tri_plan_ms = (time.perf_counter() - t) * 1e3 / len(valid)
+    ref = unwarp_prediction_tri(tri_out["pred"][:1].float().cpu(), tri_out["grid_inv"][:1].cpu(),
+                                torch.from_numpy(valid[:1]))
+    tri_err = float(abs(tri_out["pred_sampled"][:1].cpu().numpy() - ref).max())
+    log(f"exact 'tri': card blend vs host oracle on one 640x640 frame, max abs err {tri_err:.3g}; "
+        f"host plan {tri_plan_ms:.1f} ms per sample on {card}")
+    if not tri_err <= 1e-5:
+        raise AssertionError(f"exact 'tri' on the card differs from the host oracle by {tri_err}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 3c took {seconds:.1f} s on {card}")
+    del tri_out
+    torch.cuda.empty_cache()
+    return counts, other_counts, dict(eval_fps=fps, eval_timing=timing, host_ms_per_sample=host_ms,
+                                      tri_plan_ms_per_sample=tri_plan_ms, tri_max_abs_err=tri_err,
+                                      eval_result={k: v for k, v in result.items()
+                                                   if k != "per_class_iou"},
+                                      b2_mean_iou=other, phase_3c_s=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -505,6 +685,9 @@ def main() -> int:
     log("== phase 3b: main path, score maps and round trips")
     scoremap, scoremap_counts, checks = scoremap_path(model32, model16, device)
     checks.update(check_small_scoremap_against_host(device))
+    log("== phase 3c: eval")
+    with tempfile.TemporaryDirectory() as out_dir:
+        eval_counts, eval_other_counts, evaluation = eval_path(card, model16, device, out_dir)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -518,13 +701,14 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in meta.items():
         n = numbers[name]
-        launches = argmax_counts[name] + scoremap_counts[name]
+        by_path = {"argmax": argmax_counts[name], "scoremap": scoremap_counts[name],
+                   "eval": eval_counts[name], "eval_b2_configs": eval_other_counts[name]}
+        launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "launches_by_path": {"argmax": argmax_counts[name],
-                                                       "scoremap": scoremap_counts[name]},
+            "launches": launches, "launches_by_path": by_path,
             "max_abs_err": n["max_abs_err"], "bit_equal": n["bit_equal"], "ms": n["ms"],
             "kernel_ms": n["ms"], "device_ms": n["device_ms"], "loop_ms": n["loop_ms"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"], "bound_by": "bytes",
@@ -537,7 +721,7 @@ def main() -> int:
                                                        "device_ms", "loop_ms", "plain_ms",
                                                        "bound_ms", "libraries")}
                                     for c in n["cases"]]
-    log(json.dumps({"serving": serving, "scoremap": scoremap,
+    log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,7 +9,8 @@ rounds it: the matrix is cast to the input's dtype, and the result is
 rounded back to that dtype after each axis.
 ``F.interpolate(mode='bilinear', align_corners=False)`` computes the same
 function but rounds its source coordinates in f32, which moves
-non-integer-ratio resizes by up to ~2e-5.
+non-integer-ratio resizes by up to ~2e-5. ``resize_nearest`` is an index
+gather per axis, with the source index ``floor(i * in / out)``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,13 @@ def _linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
         m[i, lo] += 1.0 - w
         m[i, hi] += w
     return m
+
+
+@functools.lru_cache(maxsize=128)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index of each output position of a torch-nearest resize."""
+    idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int32)
+    return np.minimum(idx, in_size - 1)
 
 
 @contextlib.contextmanager
@@ -93,3 +101,16 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 def resize_bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """The same resize on an NCHW tensor."""
     return _resize(x, out_hw, 2)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Torch ``F.interpolate(mode='nearest')``. NHWC."""
+    h, w = x.shape[-3], x.shape[-2]
+    oh, ow = out_hw
+    if h != oh:
+        idx = torch.from_numpy(_nearest_index(h, oh)).to(x.device, torch.int64)
+        x = torch.index_select(x, x.dim() - 3, idx)
+    if w != ow:
+        idx = torch.from_numpy(_nearest_index(w, ow)).to(x.device, torch.int64)
+        x = torch.index_select(x, x.dim() - 2, idx)
+    return x

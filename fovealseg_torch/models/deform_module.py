@@ -12,12 +12,17 @@ layouts (images [B,H,W,3], grids [B,h,w,2], logits [B,h,w,C]); the
 sub-networks run NCHW.
 
 The eval forward and ``infer`` are ported: argmax labels and full-res score
-maps in every ``rev_deform_interp`` ('nearest', 'BI', 'tri'), and the
-``y_sampled_reverse`` / ``x_sampled_reverse`` round trips. The
-``MODEL.uniform_sample`` baselines, ``VAL.F_Xlr_low_scale > 1``, the saliency
-overrides (``MODEL.gt_gradient`` passes through when no labels are given, as
-in the JAX package), ``TPU.scoremap_gather_bf16`` and training raise
-``NotImplementedError`` naming where they go.
+maps in every ``rev_deform_interp`` ('nearest', 'BI', 'tri'), the
+``y_sampled_reverse`` / ``x_sampled_reverse`` round trips, the
+``MODEL.uniform_sample`` baselines ('BI' bypasses the warp with a plain
+bilinear resize, and both invert it with a plain resize),
+``VAL.F_Xlr_low_scale > 1`` (a smaller saliency input at inference) and
+``MODEL.gt_gradient`` (with labels, the label-edge sampler or the zero-bound
+mask; without them the saliency passes through, as in the JAX package).
+Training, ``xs_override``, ``MODEL.loss_at_high_res`` and
+``TPU.scoremap_gather_bf16`` raise ``NotImplementedError`` naming where they
+go. The module runs under ``no_grad``, so the JAX package's
+``stop_gradient`` on an overridden saliency has nothing to stop here.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 import torch.nn as nn
 
 from fovealseg_torch import resolve_device
+from fovealseg_torch.core.edges import edge_target_pil_style
 from fovealseg_torch.core.gaze import focus_distance_map
 from fovealseg_torch.core.grid import (
     GridSolver,
@@ -35,7 +41,11 @@ from fovealseg_torch.core.grid import (
     inverse_grid_index,
     pad_saliency,
 )
-from fovealseg_torch.core.interpolate import resize_bilinear, resize_bilinear_nchw
+from fovealseg_torch.core.interpolate import (
+    resize_bilinear,
+    resize_bilinear_nchw,
+    resize_nearest,
+)
 from fovealseg_torch.core.unwarp import (
     fill_values_splat,
     jfa_rounds_from_grid,
@@ -49,9 +59,8 @@ from fovealseg_torch.core.warp import grid_sample
 
 @dataclasses.dataclass(frozen=True)
 class DeformConfig:
-    """Static geometry/config snapshot: the JAX package's DeformConfig fields
-    the port reads, with the same defaults (the gt-gradient sampler fields
-    arrive with the training slice)."""
+    """Static geometry/config snapshot: the JAX package's DeformConfig fields,
+    with the same defaults."""
 
     task_hw: tuple[int, int] = (80, 80)
     task_hw_infer: tuple[int, int] = (80, 80)
@@ -72,7 +81,13 @@ class DeformConfig:
     jfa_iters: int = 0  # 0 = derive the round count from the grid at runtime
     scoremap_gather: str = "xla"  # TPU.scoremap_gather: both values take K5
     scoremap_gather_bf16: bool = False  # TPU.scoremap_gather_bf16: not ported
+    # MODEL.gt_gradient family: with labels, detach the saliency; with
+    # fix_gt_gradient replace it by the label-edge sampler
     gt_gradient: bool = False
+    fix_gt_gradient: bool = False
+    ignore_gt_labels: tuple = ()  # MODEL.ignore_gt_labels -> mapped to 0
+    gt_grad_blur_r: float = 1.0  # MODEL.gt_grad_gaussian_blur_r
+    deform_zero_bound: int = 0  # TRAIN.deform_zero_bound(_factor)
     loss_at_high_res: bool = False
 
     @classmethod
@@ -100,6 +115,11 @@ class DeformConfig:
             scoremap_gather=cfg.TPU.scoremap_gather,
             scoremap_gather_bf16=cfg.TPU.scoremap_gather_bf16,
             gt_gradient=cfg.MODEL.gt_gradient,
+            fix_gt_gradient=cfg.MODEL.fix_gt_gradient,
+            ignore_gt_labels=tuple(cfg.MODEL.ignore_gt_labels),
+            gt_grad_blur_r=float(cfg.MODEL.gt_grad_gaussian_blur_r),
+            deform_zero_bound=(cfg.TRAIN.deform_zero_bound_factor
+                               if cfg.TRAIN.deform_zero_bound else 0),
             loss_at_high_res=cfg.MODEL.loss_at_high_res,
         )
 
@@ -139,13 +159,13 @@ class DeformSegmentation(nn.Module):
         self.eval()
 
     def saliency(self, x: torch.Tensor, focus_point: torch.Tensor) -> torch.Tensor:
-        """Image + gaze -> softmax saliency map [B, gh, gw, 1] (eval)."""
+        """Image + gaze -> softmax saliency map [B, gh, gw, 1] (eval).
+        ``VAL.F_Xlr_low_scale > 1`` divides the saliency input size."""
         c = self.config
-        if c.f_xlr_low_scale > 1:
-            raise NotImplementedError(
-                "VAL.F_Xlr_low_scale > 1 (low-scale saliency input) arrives with the eval slice")
         solver = c.solver()
         sal_hw = c.saliency_hw
+        if c.f_xlr_low_scale > 1:
+            sal_hw = (sal_hw[0] // c.f_xlr_low_scale, sal_hw[1] // c.f_xlr_low_scale)
         x_low = resize_bilinear(x, sal_hw)
         fm = focus_distance_map(focus_point, *sal_hw).to(x.dtype)
         x5 = torch.cat([x_low, fm, fm], dim=-1).permute(0, 3, 1, 2)
@@ -156,18 +176,31 @@ class DeformSegmentation(nn.Module):
         return torch.softmax(flat, dim=-1).reshape(b, solver.grid_h, solver.grid_w, 1)
 
     def _apply_overrides(self, xs: torch.Tensor, y=None, xs_override=None) -> torch.Tensor:
-        """The saliency overrides of the JAX module. ``MODEL.gt_gradient``
-        replaces the saliency only when labels are given, as the JAX module
-        does (``elif c.gt_gradient and y is not None``); without labels the
-        saliency passes through unchanged."""
+        """The saliency overrides of the JAX module, in its order: first
+        ``MODEL.gt_gradient``, only when labels are given (without them the
+        saliency passes through): with ``fix_gt_gradient`` the label-edge
+        sampler replaces the saliency (except for the uniform-'BI' binary
+        config, as in the reference), else the zero-bound border mask
+        applies; then the ``MODEL.uniform_sample`` flattening."""
         c = self.config
-        if xs_override is not None or (c.gt_gradient and y is not None):
+        if xs_override is not None:
             raise NotImplementedError(
-                "saliency overrides (xs_override, MODEL.gt_gradient with labels) arrive with "
-                "the training slice")
+                "xs_override arrives with the training slice (ROADMAP queue 1, item 4)")
+        if c.gt_gradient and y is not None:
+            if c.fix_gt_gradient and not (c.uniform_sample == "BI" and c.num_class == 2):
+                yy = y.to(torch.float32)
+                for k in c.ignore_gt_labels:
+                    yy = torch.where(yy == k, 0.0, yy)
+                xs = edge_target_pil_style(
+                    yy, c.saliency_hw, (xs.shape[1], xs.shape[2]), c.gt_grad_blur_r,
+                    softmax=False, zero_bound=c.deform_zero_bound).to(xs.dtype)
+            elif c.deform_zero_bound:
+                bound = c.deform_zero_bound
+                mask = torch.zeros_like(xs)
+                mask[:, bound:-bound, bound:-bound, :] = 1.0
+                xs = xs * mask
         if c.uniform_sample != "":
-            raise NotImplementedError(
-                "MODEL.uniform_sample baselines arrive with the eval slice")
+            xs = torch.full_like(xs, 1.0 / (xs.shape[1] * xs.shape[2]))
         return xs
 
     def grids(self, xs: torch.Tensor, task_hw=None, label_hw=None):
@@ -181,26 +214,32 @@ class DeformSegmentation(nn.Module):
                         task_hw[1] // c.segm_downsampling_rate)
         return solver.create_grid(xs_hm, task_hw, label_hw)
 
-    def _segment(self, x: torch.Tensor, grid: torch.Tensor):
+    def _segment(self, x: torch.Tensor, grid: torch.Tensor, task_hw):
         """Forward warp in the compute dtype + encoder/decoder -> (x_sampled
         NHWC, pred NHWC). The image is cast before the warp, as the JAX
-        module casts it, so a bf16 warp rounds where the JAX package's does."""
-        x_sampled = grid_sample(x.to(self.dtype), grid)
+        module casts it, so a bf16 warp rounds where the JAX package's does.
+        The uniform-'BI' baseline bypasses the warp with a plain bilinear
+        resize to ``task_hw``."""
+        if self.config.uniform_sample == "BI":
+            x_sampled = resize_bilinear(x.to(self.dtype), task_hw)
+        else:
+            x_sampled = grid_sample(x.to(self.dtype), grid)
         pred = self.decoder(self.encoder(x_sampled.permute(0, 3, 1, 2).contiguous()))
         return x_sampled, pred.permute(0, 2, 3, 1)
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor, focus_point: torch.Tensor, train: bool = False):
+    def forward(self, x: torch.Tensor, focus_point: torch.Tensor, train: bool = False,
+                xs_override=None, y=None):
         """Warped-domain eval forward: dict(xs, xs_our, grid, grid_y,
-        x_sampled, pred)."""
+        x_sampled, pred). ``y`` [B, H, W] feeds ``MODEL.gt_gradient``."""
         if train or self.training:
             raise NotImplementedError("the training forward arrives with the training slice")
         if self.config.loss_at_high_res:
             raise NotImplementedError("MODEL.loss_at_high_res arrives with the training slice")
         xs_our = self.saliency(x, focus_point)
-        xs = self._apply_overrides(xs_our)
+        xs = self._apply_overrides(xs_our, y, xs_override)
         grid, grid_y = self.grids(xs)
-        x_sampled, pred = self._segment(x, grid)
+        x_sampled, pred = self._segment(x, grid, self.config.task_hw)
         return dict(xs=xs, xs_our=xs_our, grid=grid, grid_y=grid_y,
                     x_sampled=x_sampled, pred=pred)
 
@@ -220,7 +259,7 @@ class DeformSegmentation(nn.Module):
         seg_hw = tuple(seg_hw) if seg_hw is not None else (x.shape[1], x.shape[2])
         xs = self._apply_overrides(self.saliency(x, focus_point), y)
         grid, grid_y = self.grids(xs, task_hw=c.task_hw_infer, label_hw=c.task_hw_infer)
-        x_sampled, pred = self._segment(x, grid)
+        x_sampled, pred = self._segment(x, grid, c.task_hw_infer)
         task_idx, valid = inverse_grid_index(grid, seg_hw)
         grid_inv = grid_from_index(task_idx, valid, (grid.shape[1], grid.shape[2]))
         jfa_iters = c.jfa_iters or None
@@ -228,7 +267,13 @@ class DeformSegmentation(nn.Module):
         pred32 = pred.to(torch.float32)
         out = dict(xs=xs, grid=grid, grid_y=grid_y, grid_inv=grid_inv, unfilled_mask=~valid,
                    x_sampled=x_sampled, pred=pred)
-        if argmax_labels and c.rev_deform_interp == "nearest":
+        if c.uniform_sample in ("BI", "nearest"):
+            # the uniform baselines invert the "warp" by a plain upsample
+            resize = resize_bilinear if c.uniform_sample == "BI" else resize_nearest
+            out["pred_sampled"] = resize(pred32, seg_hw)
+            if argmax_labels:
+                out["pred_label"] = torch.argmax(out["pred_sampled"], dim=-1).to(torch.int32)
+        elif argmax_labels and c.rev_deform_interp == "nearest":
             # serving: argmax commutes with the row-gather inverse warp, so the
             # class ids ride the landing scatter and the class-mode flood
             out["pred_label"] = unwarp_argmax_scatter(pred32, grid, seg_hw, jfa_iters, rounds)
@@ -241,7 +286,12 @@ class DeformSegmentation(nn.Module):
                                                     interp=c.rev_deform_interp)
             if argmax_labels:
                 out["pred_label"] = torch.argmax(out["pred_sampled"], dim=-1).to(torch.int32)
-        if y_sampled_reverse and y is not None:
+        if y_sampled_reverse and y is not None and c.uniform_sample == "BI":
+            # uniform 'BI': bilinear downsample truncated to ids, nearest upsample
+            y_s = torch.floor(resize_bilinear(y.to(torch.float32)[..., None], c.task_hw_infer))
+            out["y_sampled"] = y_s[..., 0]
+            out["y_sampled_reverse"] = resize_nearest(y_s, seg_hw)[..., 0]
+        elif y_sampled_reverse and y is not None:
             # the labels down through the forward grid and back up, branched on
             # rev_deform_interp as the JAX package does
             y_s = grid_sample(y.to(torch.float32)[..., None], grid_y, mode="nearest")
@@ -263,7 +313,9 @@ class DeformSegmentation(nn.Module):
                                                      interp=c.rev_deform_interp), dim=-1)
                 rev = rev.to(torch.float32)
             out["y_sampled_reverse"] = rev
-        if x_sampled_reverse:
+        if x_sampled_reverse and c.uniform_sample == "BI":
+            out["x_sampled_reverse"] = resize_bilinear(x_sampled.to(torch.float32), seg_hw)
+        elif x_sampled_reverse:
             out["x_sampled_reverse"] = unwarp_prediction(
                 x_sampled.to(torch.float32), grid_inv, valid, interp=c.rev_deform_interp)
         return out

@@ -10,6 +10,8 @@
   ``export_torch_state_dict``.
 * :func:`load_torch_checkpoint` loads the reference's 4-file set
   ``{saliency,compress,encoder,decoder}_epoch_N.pth`` into a model.
+* :func:`load_torch_weight_files` loads per-network files named one by one,
+  the ``MODEL.weights_{encoder,decoder,net_saliency,net_compress}`` surface.
 """
 
 from __future__ import annotations
@@ -75,9 +77,23 @@ def load_torch_checkpoint(model: torch.nn.Module, ckpt_dir: str, epoch="last") -
     """Load ``{saliency,compress,encoder,decoder}_epoch_{epoch}.pth`` into the
     four submodules of ``model`` (each strictly). A missing file raises:
     a sub-network left at its random init would serve quietly wrong masks."""
-    for kind, sub in SUBMODULE_OF_FILE.items():
-        path = os.path.join(ckpt_dir, f"{kind}_epoch_{epoch}.pth")
+    load_torch_weight_files(model, {kind: os.path.join(ckpt_dir, f"{kind}_epoch_{epoch}.pth")
+                                     for kind in SUBMODULE_OF_FILE})
+
+
+def load_torch_weight_files(model: torch.nn.Module, paths: Mapping[str, str]) -> list[str]:
+    """Load per-network ``.pth`` files into ``model``: ``paths`` maps a file
+    kind ('saliency', 'compress', 'encoder', 'decoder') to a path. Empty
+    entries are skipped, as the JAX package skips them; a named file that is
+    missing raises, and each file loads strictly into its submodule.
+    Returns the kinds loaded."""
+    loaded = []
+    for kind, path in paths.items():
+        if not path:
+            continue
         if not os.path.exists(path):
             raise FileNotFoundError(f"checkpoint file missing: {path}")
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        getattr(model, sub).load_state_dict(sd, strict=True)
+        getattr(model, SUBMODULE_OF_FILE[kind]).load_state_dict(sd, strict=True)
+        loaded.append(kind)
+    return loaded

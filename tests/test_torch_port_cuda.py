@@ -341,3 +341,104 @@ def test_tiny_scoremap_slice_on_card_matches_host(dev):
     torch.testing.assert_close(got["pred_sampled"].cpu(), host_map, rtol=0, atol=0)
     for key in ("y_sampled", "y_sampled_reverse", "x_sampled_reverse"):
         assert got[key].shape == ref[key].shape and torch.isfinite(got[key]).all(), key
+
+
+TINY_EVAL = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--canvas", "64", "--num-batches", "2",
+             "TRAIN.task_input_size", "(16,16)", "TRAIN.saliency_input_size", "(16,16)",
+             "MODEL.arch_encoder", "hrnetv2_nodownsp_tiny", "MODEL.gaussian_radius", "5",
+             "VAL.batch_size", "2", "VAL.y_sampled_reverse", "True", "VAL.dice", "True",
+             "VAL.hd95", "True", "VAL.trimap", "True"]
+
+
+def test_tiny_eval_on_card_matches_host(dev, tmp_path):
+    """The eval CLI on the card at the tiny size: each batch's labels and
+    label round trip are bit-equal to the host's plain recompute from the
+    card's own pred, grid and sampled labels, the card's per-batch
+    histograms equal the host metric functions' on those labels integer for
+    integer, and the host accumulator over them gives the card's result."""
+    from fovealseg_torch.cli import eval as cli
+    from fovealseg_torch.core.grid import inverse_grid_index
+    from fovealseg_torch.core.metrics import intersection_and_union
+    from fovealseg_torch.core.unwarp import (
+        jfa_rounds_from_grid,
+        unwarp_argmax_scatter,
+        unwarp_labels_fast,
+    )
+
+    seen, totals = [], [0, 0]
+
+    def on_batch(out, pred, gt, acc):
+        # this batch's histograms: what the card's accumulator gained
+        seen.append(({k: v.cpu() for k, v in out.items()}, pred.cpu(), gt.cpu(),
+                     (acc.inter - totals[0]).cpu(), (acc.union - totals[1]).cpu()))
+        totals[:] = [acc.inter.clone(), acc.union.clone()]
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        result = cli.main(TINY_EVAL + ["DIR", str(tmp_path / "card")], on_batch=on_batch)
+    assert len(seen) == 2
+    host_batches = []
+    for out, pred, gt, d_inter, d_union in seen:
+        grid = out["grid"]
+        rounds = jfa_rounds_from_grid(grid, (64, 64))
+        labels = unwarp_argmax_scatter(out["pred"].float(), grid, (64, 64), rounds=rounds)
+        torch.testing.assert_close(pred, labels, rtol=0, atol=0)
+        task_idx, valid = inverse_grid_index(grid, (64, 64))
+        yrev = unwarp_labels_fast(out["y_sampled"][..., None], task_idx, valid, None, rounds)
+        torch.testing.assert_close(out["y_sampled_reverse"], yrev[..., 0], rtol=0, atol=0)
+        inter, union = intersection_and_union(labels, gt, 51)
+        torch.testing.assert_close(d_inter, inter, rtol=0, atol=0)
+        torch.testing.assert_close(d_union, union, rtol=0, atol=0)
+        host_batches.append((labels, gt, yrev[..., 0]))
+    assert cli.accumulate(host_batches, _tiny_eval_cfg(tmp_path / "host")) == result
+
+
+def _tiny_eval_cfg(out_dir):
+    from fovealseg_torch.configs import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file("fovealseg_torch/configs/deform.yaml")
+    cfg.merge_from_list(TINY_EVAL[6:] + ["DIR", str(out_dir)])
+    return cfg
+
+
+def test_tri_device_on_card_matches_host_oracle(dev):
+    """The exact 'tri' fill with its sample and blend on the card against the
+    port's per-sample host oracle, within 1e-5, on the tiny model's inverse
+    warp (64x64 canvas, 16x16 task)."""
+    from fovealseg_torch.core.grid import grid_from_index, inverse_grid_index
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+    from fovealseg_torch.native.interp2d import unwarp_prediction_tri, unwarp_prediction_tri_device
+
+    cfg = DeformConfig(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16),
+                       gaussian_radius=5, num_class=51, arch_encoder="hrnetv2_nodownsp_tiny")
+    torch.manual_seed(1)
+    model = DeformSegmentation(cfg, device=dev)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.uniform(0.2, 0.8, (2, 2)).astype(np.float32)).to(dev)
+    out = model.infer(x, f)
+    task_idx, valid = inverse_grid_index(out["grid"], (64, 64))
+    grid_inv = grid_from_index(task_idx, valid, (16, 16))
+    got = unwarp_prediction_tri_device(out["pred"].float(), grid_inv, valid)
+    assert got.device.type == "cuda" and got.shape == (2, 64, 64, 51)
+    ref = unwarp_prediction_tri(out["pred"].float().cpu(), grid_inv.cpu(), valid.cpu())
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=1e-5)
+
+
+def test_edge_target_on_card_matches_host(dev):
+    """The label-edge sampler of MODEL.gt_gradient on the card (full f32, TF32
+    off inside) against the host within 1e-6, with the uint8 quantised edges
+    equal."""
+    from fovealseg_torch.core.edges import edge_target_pil_style, pil_find_edges
+
+    rng = np.random.default_rng(9)
+    y = torch.from_numpy(rng.integers(0, 51, (2, 8, 8)).astype(np.int32).repeat(80, 1)
+                         .repeat(80, 2))
+    for softmax, bound in ((False, 1), (True, 0)):
+        got = edge_target_pil_style(y.to(dev), (80, 80), (80, 80), 1.0, softmax=softmax,
+                                    zero_bound=bound)
+        ref = edge_target_pil_style(y, (80, 80), (80, 80), 1.0, softmax=softmax, zero_bound=bound)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-6)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 40, 48, 1)).astype(np.float32))
+    torch.testing.assert_close(pil_find_edges(img.to(dev)).cpu(), pil_find_edges(img),
+                               rtol=0, atol=0)

@@ -32,12 +32,15 @@ def test_port_sources_exist():
     names = {os.path.relpath(p, REPO) for p in _sources()}
     assert "chip_smoke.py" in names
     for mod in (("ops", "jfa.py"), ("ops", "gather.py"), ("core", "unwarp.py"),
-                ("core", "warp.py"), ("core", "grid.py")):
+                ("core", "warp.py"), ("core", "grid.py"), ("core", "metrics.py"),
+                ("core", "edges.py"), ("data", "synthetic.py"), ("native", "spatial.py"),
+                ("native", "interp2d.py"), ("utils", "visuals.py"), ("cli", "eval.py")):
         assert os.path.join("fovealseg_torch", *mod) in names
     for src in ("jfa.cu", "gather.cu"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
     assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "configs", "deform.yaml"))
-    assert len(names) > 16
+    assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "native", "spatial.cpp"))
+    assert len(names) > 30
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
