@@ -38,6 +38,21 @@ Phases (any failure exits non-zero):
         of exact 'tri' (held within 1e-5 of the host oracle on one frame),
         'BI', ``MODEL.uniform_sample='nearest'`` and ``'BI'``; eval frames/s,
         host ms per sample of the boundary metrics and of the 'tri' plan;
+     d. training: the row gather's backward (K5b) against its plain version
+        (``index_add_``) at C = 51, 1, 2 and 3 on the flagship's inverse-warp
+        indices, within a stated tolerance (its atomics sum in no fixed
+        order), with times beside ``index_add_``'s; one train step of the
+        tiny pair on the card against the host (loss, the four groups'
+        gradients, updated parameters, BN statistics; TF32 off), and one
+        ``MODEL.loss_at_high_res`` step each in 'nearest' and 'BI' whose
+        saliency-net gradients must be non-zero and match the host's; the
+        flagship's default training step at b8 in float32 and bfloat16
+        (samples/s, device-busy ms and idle share over two profiled steps,
+        kernels per step, every loss finite); the flagship with
+        ``MODEL.loss_at_high_res`` at b8 (K2, K5 and K5b once per step;
+        'BI': K4, K5 and K5b); the train CLI (2 epochs x 3 iterations, then
+        one more epoch resumed from ``epoch_last``) and the eval CLI on its
+        epoch-3 checkpoint;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -121,7 +136,7 @@ def counters():
 
     return {"jfa_class": jfa.nearest_class, "jfa_relpay": jfa.nearest_payload_packed,
             "jfa_payload": jfa.nearest_payload, "jfa_seed": jfa.nearest_seed,
-            "row_gather": gather.row_gather}
+            "row_gather": gather.row_gather, "row_gather_backward": gather.row_gather_backward}
 
 
 def reset_counts():
@@ -655,6 +670,443 @@ def eval_path(card, model16, device, out_dir):
                                       b2_mean_iou=other, phase_3c_s=seconds)
 
 
+TRAIN_OPTS = ["TRAIN.task_input_size", "(80,80)", "TRAIN.saliency_input_size", "(80,80)",
+              "MODEL.gaussian_radius", "45", "DATASET.num_class", "51",
+              "TRAIN.batch_size_per_gpu", "8"]
+TINY_OPTS = ["TRAIN.task_input_size", "(16,16)", "TRAIN.saliency_input_size", "(16,16)",
+             "MODEL.gaussian_radius", "5", "MODEL.arch_encoder", "hrnetv2_nodownsp_tiny"]
+
+
+def train_cfg(*opts):
+    """deform.yaml with ``opts`` (the flagship's by default)."""
+    from fovealseg_torch.configs import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file("fovealseg_torch/configs/deform.yaml")
+    cfg.merge_from_list(list(opts) or TRAIN_OPTS)
+    cfg.TRAIN.max_iters = cfg.TRAIN.epoch_iters * cfg.TRAIN.num_epoch
+    return cfg
+
+
+def check_k5b(device):
+    """Phase 3d: K5b against its plain version at the flagship's inverse-warp
+    indices (``tools/profile_gather.py::flagship_cases``: C = 51 and 1 at
+    K2's output, 2 and 3 at K4's), on random f32 gradient rows. Its atomics
+    sum in no fixed order, so each element is held within 1e-5 of the plain
+    sum's absolute terms (a reordered f32 sum of k terms moves by at most
+    ~k * 6e-8 of them; k is ~64 on average and a few thousand at most)."""
+    import torch
+
+    from fovealseg_torch.ops.gather import row_gather_backward, row_gather_backward_plain
+    from fovealseg_torch.tools.profile_gather import device_ms, events_ms, flagship_cases, loop_ms
+
+    cases = []
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    for label, table, idx in flagship_cases(device, SEED + 21):
+        b, t, c = table.shape
+        n = idx.shape[1]
+        g = torch.randn((b, n, c), generator=gen, device=device)
+        k_out = row_gather_backward(g, idx, t)
+        ref = row_gather_backward_plain(g, idx, t)
+        scale = row_gather_backward_plain(g.abs(), idx, t)
+        torch.cuda.synchronize()
+        err = (k_out - ref).abs()
+        ratio = float((err / scale.clamp(min=1e-30)).max())
+        max_abs = float(err.max())
+        if not ratio <= 1e-5:
+            raise AssertionError(f"row_gather_backward [{label}]: {ratio:.3g} of the absolute "
+                                 f"terms off the plain version (limit 1e-5)")
+        del k_out, ref, scale, err
+        off32 = torch.arange(b, device=device, dtype=torch.int32).view(b, 1) * t
+        flat32 = (idx + off32).view(-1)
+        g2 = g.view(-1, c)
+
+        def library():
+            return torch.zeros((b * t, c), device=device).index_add_(0, flat32, g2)
+
+        def kernel():
+            return row_gather_backward(g, idx, t)
+
+        def plain():
+            return row_gather_backward_plain(g, idx, t)
+
+        bound = (b * n * c * 4 + b * n * 4 + b * t * c * 4) / HBM_BYTES_PER_S * 1e3
+        r = dict(label=label, channels=c, max_abs_err=max_abs, err_over_abs_terms=ratio,
+                 ms=events_ms(kernel, 20), loop_ms=loop_ms(kernel, 20),
+                 device_ms=device_ms(kernel, 20)[0], plain_ms=events_ms(plain, 5, warmup=1),
+                 library_ms=events_ms(library, 20), library_device_ms=device_ms(library, 20)[0],
+                 bound_ms=bound)
+        log(f"row_gather_backward [{label}]: max abs err {max_abs:.3g} ({ratio:.3g} of the "
+            f"absolute terms); kernel {r['ms']:.4f} ms events, {r['loop_ms']:.4f} ms back to "
+            f"back, {r['device_ms']:.4f} ms device (zero fill included); plain "
+            f"{r['plain_ms']:.4f} ms; index_add_ int32 {r['library_ms']:.4f} ms events, "
+            f"{r['library_device_ms']:.4f} ms device; bound {bound:.4f} ms (bytes)")
+        cases.append(r)
+        del g, g2, table, idx
+    torch.cuda.empty_cache()
+    first = cases[0]
+    return dict({k: first[k] for k in ("ms", "loop_ms", "device_ms", "plain_ms", "library_ms",
+                                       "bound_ms")},
+                max_abs_err=max(c["max_abs_err"] for c in cases), bit_equal=False,
+                libraries={"index_add_int32": {"ms": first["library_ms"],
+                                               "device_ms": first["library_device_ms"]}},
+                cases=cases)
+
+
+def _no_dropout(model):
+    from fovealseg_torch.models.layers import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def _group_grads(model):
+    """{group: flat f32 gradient on the host} of the four sub-networks."""
+    import torch
+
+    from fovealseg_torch.train.optim import GROUPS
+
+    out = {}
+    for name, sub, _, _ in GROUPS:
+        gs = [p.grad.detach().float().cpu().reshape(-1) for p in getattr(model, sub).parameters()
+              if p.grad is not None]
+        out[name] = torch.cat(gs) if gs else torch.zeros(0)
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _host_and_card_step(device, opts):
+    """One train step of the tiny pair (same weights, dropout off) on the
+    card and on the host on one synthetic b2 batch: (host, card) as
+    (model, mets, grads, params before) each."""
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.data.synthetic import make_batch
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import create_optimizer, make_stage_schedules
+
+    cfg = train_cfg(*TINY_OPTS, *opts)
+    over = {"loss_at_high_res": cfg.MODEL.loss_at_high_res,
+            "rev_deform_interp": cfg.MODEL.rev_deform_interp}
+    host, card = _tiny_pair(device, **over)
+    batch = make_batch(np.random.default_rng(SEED + 22), 2, canvas=64)
+    runs = []
+    for model in (host, card):
+        _no_dropout(model)
+        dev = next(model.parameters()).device
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        state = S.init_state(model, create_optimizer(cfg, model), SEED)
+        step = S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        # the step zeroes the gradients before its backward: run it, then read
+        # the gradients it left behind
+        mets = step(state, tb)
+        runs.append((model, {k: float(v) for k, v in mets.items()}, _group_grads(model), before))
+    return runs
+
+
+def check_small_train_against_host(device) -> dict:
+    """One train step of the tiny pair, card (f32, TF32 off) against host,
+    dropout off on both: the loss within 1e-4; each group's gradient within
+    5% in norm (on the host alone, moving the warped image by 1.4e-5 of its
+    scale moves the tiny encoder's train-mode gradients by 2.3%: its
+    smallest BN branch normalises 8 values); BN statistics within 1e-3 of
+    their update in norm; every updated parameter within 2.01 learning rates
+    of the host's (Adam's first step moves every element by ~lr whatever its
+    gradient's size, so an element whose gradient is at the noise level
+    moves +lr on one device and -lr on the other; the update's norm says
+    nothing and is only printed: 25 compress weights read 0.1% and 19% in
+    two runs). Then one ``MODEL.loss_at_high_res`` step in
+    'nearest' and in 'BI': the saliency nets' gradient (it reaches them only
+    through the row gather's backward) must be non-zero and within 5% of
+    the host's, and K5b must have run."""
+    import torch
+
+    from fovealseg_torch.ops import gather
+    from fovealseg_torch.train.optim import GROUPS
+
+    prev = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    try:
+        (h_model, h_mets, h_grads, h_before), (c_model, c_mets, c_grads, c_before) = \
+            _host_and_card_step(device, [])
+        res = {"loss_host": h_mets["loss"], "loss_card": c_mets["loss"],
+               "loss_rel_err": abs(c_mets["loss"] - h_mets["loss"]) / abs(h_mets["loss"])}
+        res["grad_rel_err"] = {g: _rel(c_grads[g], h_grads[g]) for g in h_grads}
+        h_sd, c_sd = h_model.state_dict(), c_model.state_dict()
+        stat_num = stat_den = 0.0
+        upd_err, max_dev = {}, 0.0
+        for name, sub, _, mult in GROUPS:
+            num = den = 0.0
+            for k in h_sd:
+                if not k.startswith(sub + ".") or "num_batches" in k:
+                    continue
+                dh = (h_sd[k] - h_before[k]).double()
+                dc = (c_sd[k].cpu() - c_before[k].cpu()).double()
+                if "running_" in k:
+                    stat_num += float(((dc - dh) ** 2).sum())
+                    stat_den += float((dh ** 2).sum())
+                else:
+                    num += float(((dc - dh) ** 2).sum())
+                    den += float((dh ** 2).sum())
+                    max_dev = max(max_dev, float((dc - dh).abs().max()))
+            upd_err[name] = (num / max(den, 1e-300)) ** 0.5
+        res["update_rel_err"] = upd_err
+        res["bn_stat_rel_err"] = (stat_num / max(stat_den, 1e-300)) ** 0.5
+        lr = 0.1 * train_cfg(*TINY_OPTS).TRAIN.lr_mult_encoder
+        res["max_param_dev_over_lr"] = max_dev / lr
+        log(f"tiny train step card vs host: {json.dumps(res)}")
+        if (res["loss_rel_err"] > 1e-4 or max(res["grad_rel_err"].values()) > 0.05
+                or res["bn_stat_rel_err"] > 1e-3 or res["max_param_dev_over_lr"] > 2.01):
+            raise AssertionError("the tiny train step on the card disagrees with the host's")
+        for interp in ("nearest", "BI"):
+            before = gather.row_gather_backward.launches
+            (_, h_mets, h_grads, _), (_, c_mets, c_grads, _) = _host_and_card_step(
+                device, ["MODEL.loss_at_high_res", "True", "MODEL.rev_deform_interp", interp])
+            launched = gather.row_gather_backward.launches - before
+            sal = torch.cat([c_grads["saliency"], c_grads["compress"]])
+            sal_h = torch.cat([h_grads["saliency"], h_grads["compress"]])
+            r = {"loss_rel_err": abs(c_mets["loss"] - h_mets["loss"]) / abs(h_mets["loss"]),
+                 "saliency_grad_norm": float(sal.norm()), "saliency_grad_rel_err": _rel(sal, sal_h),
+                 "k5b_launches": launched}
+            res[f"high_res_{interp}"] = r
+            log(f"tiny loss_at_high_res '{interp}' step card vs host: {json.dumps(r)}")
+            if (launched < 1 or not r["saliency_grad_norm"] > 0 or r["loss_rel_err"] > 1e-4
+                    or r["saliency_grad_rel_err"] > 0.05):
+                raise AssertionError(f"loss_at_high_res '{interp}' on the card: saliency "
+                                     f"gradient lost or off the host's: {r}")
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = prev
+    return res
+
+
+def _flagship_state(device, dtype, cfg):
+    import torch
+
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import create_optimizer, make_stage_schedules
+
+    over = {"loss_at_high_res": cfg.MODEL.loss_at_high_res,
+            "rev_deform_interp": cfg.MODEL.rev_deform_interp}
+    model = flagship(getattr(torch, dtype), device, **over)
+    state = S.init_state(model, create_optimizer(cfg, model), SEED)
+    return state, S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg))
+
+
+def _batches(device, n, seed):
+    import torch
+
+    from fovealseg_torch.data.synthetic import make_batch_device
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [make_batch_device(gen, 8, CANVAS, 50) for _ in range(n)]
+
+
+def device_kernels(prof):
+    """The kernels of a torch.profiler run: its CUDA events without the
+    annotations (the optimizer's ``Optimizer.step#...`` range also appears on
+    the device timeline, over the kernels it launched)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
+
+
+def time_train(card, device, dtype) -> dict:
+    """The flagship's default training step at b8: 2 warm-up steps, 10 timed
+    (host clock, ending in a synchronise), then 2 under torch.profiler for
+    the device-busy time and the kernels per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovealseg_torch.train.loop import batch_controls
+
+    cfg = train_cfg()
+    state, step = _flagship_state(device, dtype, cfg)
+    batches = _batches(device, 2, SEED + 23)
+    losses = []
+
+    def run(i):
+        b = {**batches[i % 2], **batch_controls(cfg, 1, state.step, state.pool_rng)}
+        losses.append(step(state, b)["loss"])
+
+    for i in range(2):
+        run(i)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(10):
+        run(i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(2):
+            run(i)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / 2
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training {dtype}: non-finite loss {losses}")
+    top = {}
+    for e in kernels:
+        top[e.name[:50]] = top.get(e.name[:50], 0.0) + e.time_range.elapsed_us() / 2e3
+    res = dict(samples_per_s=8 / (step_ms / 1e3), step_ms=step_ms, device_busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / step_ms, kernels_per_step=len(kernels) / 2,
+               losses=losses, top_kernels_ms=dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"train b8 {dtype}: {res['samples_per_s']:.2f} samples/s ({step_ms:.2f} ms/step host "
+        f"clock), device busy {busy_ms:.2f} ms/step, idle share {res['idle_share']:.3f}, "
+        f"{res['kernels_per_step']:.0f} kernels/step; losses {losses} on {card}")
+    log(f"train b8 {dtype} top kernels (ms/step): {json.dumps(res['top_kernels_ms'])}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_high_res_step(run) -> dict:
+    """One step on the host clock, then one under torch.profiler: device-busy
+    ms, kernels, and the device ms of the jump floods, K5 and K5b."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+
+    def ms(*names):
+        return sum(e.time_range.elapsed_us() for e in kernels
+                   if any(n in e.name for n in names)) / 1e3
+
+    busy = ms("")
+    return {"profile": dict(step_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
+                            kernels=len(kernels), jfa_ms=ms("jfa_"),
+                            k5_ms=ms("gather_small", "gather_wide", "gather_scalar"),
+                            k5b_ms=ms("scatter_add_rows"))}
+
+
+def train_high_res(device) -> tuple[dict, dict]:
+    """The flagship with ``MODEL.loss_at_high_res`` at b8, float32: 2 steps in
+    'nearest' (K2, K5 and K5b once each per step), 1 in 'BI' (K4, K5, K5b)."""
+    import torch
+
+    from fovealseg_torch.train.loop import batch_controls
+
+    counts_all = dict.fromkeys(counters(), 0)
+    res = {}
+    for interp, steps, expected in (("nearest", 2, {"jfa_relpay": 1, "row_gather": 1,
+                                                     "row_gather_backward": 1}),
+                                    ("BI", 1, {"jfa_seed": 1, "row_gather": 1,
+                                               "row_gather_backward": 1})):
+        cfg = train_cfg(*TRAIN_OPTS, "MODEL.loss_at_high_res", "True",
+                        "MODEL.rev_deform_interp", interp)
+        state, step = _flagship_state(device, "float32", cfg)
+        batches = _batches(device, steps, SEED + 24)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        losses = [step(state, {**b, **batch_controls(cfg, 1, state.step, state.pool_rng)})["loss"]
+                  for b in batches]
+        counts = read_counts()
+        ms = (time.perf_counter() - t) * 1e3 / steps
+        check_counts(f"loss_at_high_res '{interp}' ({steps} b8 steps)", counts,
+                     {**dict.fromkeys(counts, 0), **{k: v * steps for k, v in expected.items()}})
+        losses = [float(v) for v in losses]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"loss_at_high_res '{interp}': non-finite loss {losses}")
+        res[interp] = dict(step_ms=ms, losses=losses, **profile_high_res_step(
+            lambda: step(state, {**batches[0], **batch_controls(cfg, 1, state.step,
+                                                                 state.pool_rng)})))
+        log(f"train b8 f32 loss_at_high_res '{interp}': {ms:.2f} ms/step (first steps, host "
+            f"clock), losses {losses}; one more step profiled: {json.dumps(res[interp]['profile'])}")
+        counts_all = {k: counts_all[k] + counts[k] for k in counts}
+        del state, batches
+        torch.cuda.empty_cache()
+    return res, counts_all
+
+
+def train_cli(out_dir) -> tuple[dict, dict]:
+    """The train CLI on the flagship: 2 epochs x 3 iterations, then one more
+    epoch resumed from ``epoch_last``; the eval CLI on the epoch-3
+    checkpoint."""
+    import csv
+    import os
+
+    from fovealseg_torch.cli import eval as ecli
+    from fovealseg_torch.cli import train as tcli
+
+    d = f"{out_dir}/train"
+    base = ["--cfg", "fovealseg_torch/configs/deform.yaml", *TRAIN_OPTS, "TRAIN.epoch_iters", "3",
+            "DIR", d]
+    reset_counts()
+    t = time.perf_counter()
+    state = tcli.main(base + ["TRAIN.num_epoch", "2"])
+    first_s = time.perf_counter() - t
+    if state.step != 6:
+        raise AssertionError(f"train CLI: step {state.step} after 2 epochs of 3, expected 6")
+    with open(os.path.join(d, "history_epoch_last_0.csv")) as fh:
+        cols = next(csv.reader(fh))
+    if cols != ["epoch", "train_loss", "train_acc", "train_edge_loss"]:
+        raise AssertionError(f"history CSV columns {cols}")
+    t = time.perf_counter()
+    state = tcli.main(base + ["TRAIN.num_epoch", "3", "TRAIN.auto_resume", "True"])
+    resume_s = time.perf_counter() - t
+    if state.step != 9:
+        raise AssertionError(f"train CLI resumed: step {state.step}, expected 9")
+    with open(os.path.join(d, "history_epoch_last_0.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    if len(rows) != 9 or float(rows[-1]["epoch"]) != 3.0:
+        raise AssertionError(f"resumed history: {len(rows)} rows, last epoch {rows[-1]['epoch']}")
+    files = sorted(os.listdir(d))
+    for kind in ("saliency", "compress", "encoder", "decoder", "train_state"):
+        for tag in (2, 3, "last"):
+            if f"{kind}_epoch_{tag}.pth" not in files:
+                raise AssertionError(f"train CLI did not write {kind}_epoch_{tag}.pth: {files}")
+    del state
+    result = ecli.main(EVAL_FLAGS + ["--num-batches", "1", *EVAL_OPTS, "VAL.batch_size", "8",
+                                     "VAL.y_sampled_reverse", "True", "TRAIN.start_epoch", "3",
+                                     "DIR", d])
+    check_result("eval of the trained epoch-3 checkpoint", result, 1)
+    counts = read_counts()
+    res = dict(two_epochs_s=first_s, resume_epoch_s=resume_s, history_rows=len(rows),
+               eval_mean_iou=result["mean_iou"], eval_pixel_acc=result["pixel_acc"])
+    log(f"train CLI: 2 epochs x 3 b8 iterations (+ 2 evals of 8 b8 batches) in {first_s:.1f} s, "
+        f"resumed epoch 3 in {resume_s:.1f} s (step 9); eval of epoch 3: "
+        f"{json.dumps({k: v for k, v in result.items() if k != 'per_class_iou'})}")
+    return res, counts
+
+
+def train_path(card, device, out_dir):
+    """Phase 3d."""
+    t = time.perf_counter()
+    numbers = {"row_gather_backward": check_k5b(device)}
+    small = check_small_train_against_host(device)
+    reset_counts()
+    timing = {dt: time_train(card, device, dt) for dt in ("float32", "bfloat16")}
+    default_counts = read_counts()
+    check_counts("the default training step (24 b8 steps)", default_counts,
+                 dict.fromkeys(default_counts, 0))
+    high_res, high_res_counts = train_high_res(device)
+    cli_res, cli_counts = train_cli(out_dir)
+    counts = {k: high_res_counts[k] + cli_counts[k] for k in high_res_counts}
+    seconds = time.perf_counter() - t
+    log(f"phase 3d took {seconds:.1f} s on {card}")
+    return numbers, counts, dict(small_train=small, train=timing, train_high_res=high_res,
+                                 train_cli=cli_res, phase_3d_s=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -688,6 +1140,12 @@ def main() -> int:
     log("== phase 3c: eval")
     with tempfile.TemporaryDirectory() as out_dir:
         eval_counts, eval_other_counts, evaluation = eval_path(card, model16, device, out_dir)
+    del model32, model16
+    torch.cuda.empty_cache()
+    log("== phase 3d: training")
+    with tempfile.TemporaryDirectory() as out_dir:
+        train_numbers, train_counts, training = train_path(card, device, out_dir)
+    numbers.update(train_numbers)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -697,12 +1155,16 @@ def main() -> int:
         "jfa_payload": ("fovealseg_torch/csrc/jfa.cu", "fovealseg_tpu/ops/pallas_jfa.py:194"),
         "jfa_seed": ("fovealseg_torch/csrc/jfa.cu", "fovealseg_tpu/ops/pallas_jfa.py:186"),
         "row_gather": ("fovealseg_torch/csrc/gather.cu", "fovealseg_tpu/ops/pallas_gather.py:78"),
+        # no TPU kernel: the scatter-add that JAX's autodiff makes of the flat gather
+        "row_gather_backward": ("fovealseg_torch/csrc/gather.cu",
+                                "fovealseg_tpu/core/unwarp.py:31"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         n = numbers[name]
         by_path = {"argmax": argmax_counts[name], "scoremap": scoremap_counts[name],
-                   "eval": eval_counts[name], "eval_b2_configs": eval_other_counts[name]}
+                   "eval": eval_counts[name], "eval_b2_configs": eval_other_counts[name],
+                   "train": train_counts[name]}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -719,9 +1181,11 @@ def main() -> int:
         if "cases" in n:
             kernels[-1]["cases"] = [{k: c[k] for k in ("label", "channels", "variant", "ms",
                                                        "device_ms", "loop_ms", "plain_ms",
-                                                       "bound_ms", "libraries")}
+                                                       "bound_ms", "libraries", "max_abs_err",
+                                                       "err_over_abs_terms", "library_ms",
+                                                       "library_device_ms") if k in c}
                                     for c in n["cases"]]
-    log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation,
+    log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -179,10 +179,11 @@ def load_weights(module, cfg, torch_ckpt, torch_epoch, log) -> None:
         log.info("loaded per-net torch weights from MODEL.weights_*")
         return
     if cfg.TRAIN.start_epoch > 0 and os.path.isdir(cfg.DIR):
-        raise NotImplementedError(
-            "TRAIN.start_epoch > 0 resumes from the training checkpoint in DIR; the port's "
-            "own checkpoint format comes with the training slice (ROADMAP queue 1, item 4). "
-            "Use --torch-ckpt or MODEL.weights_*")
+        # the training checkpoint of that epoch in DIR (train/checkpoint.py)
+        ckpt.load_torch_checkpoint(module, cfg.DIR, cfg.TRAIN.start_epoch)
+        log.info("loaded the training checkpoint of epoch %d from %s", cfg.TRAIN.start_epoch,
+                 cfg.DIR)
+        return
     init_weights(module, torch.Generator().manual_seed(cfg.TRAIN.seed))
     log.warning(
         "no weights loaded (no --torch-ckpt, no MODEL.weights_*, no resumable checkpoint): "

@@ -11,6 +11,8 @@ rounded back to that dtype after each axis.
 function but rounds its source coordinates in f32, which moves
 non-integer-ratio resizes by up to ~2e-5. ``resize_nearest`` is an index
 gather per axis, with the source index ``floor(i * in / out)``.
+``resize_area`` (adaptive average pooling, torch's ``mode='area'``) is the
+same dense contraction with the pooling bins as the matrix.
 """
 
 from __future__ import annotations
@@ -42,6 +44,20 @@ def _linear_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=128)
+def _area_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense [out_size, in_size] matrix for 1-D adaptive average pooling."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        start = (i * in_size) // out_size
+        end = -((-(i + 1) * in_size) // out_size)  # ceil
+        m[i, start:end] = 1.0 / (end - start)
+    return m
+
+
+_MATRICES = {"linear": _linear_resize_matrix, "area": _area_resize_matrix}
+
+
+@functools.lru_cache(maxsize=128)
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     """Source index of each output position of a torch-nearest resize."""
     idx = np.floor(np.arange(out_size) * (in_size / out_size)).astype(np.int32)
@@ -65,15 +81,17 @@ def full_f32_matmul():
 
 @functools.lru_cache(maxsize=64)
 def _resize_matrix(in_size: int, out_size: int, device: torch.device,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The [out, in] resize matrix as an f32 tensor on ``device``, its
-    entries rounded to ``dtype``."""
-    m = torch.from_numpy(_linear_resize_matrix(in_size, out_size))
+                   dtype: torch.dtype = torch.float32, kind: str = "linear") -> torch.Tensor:
+    """The [out, in] resize matrix of ``kind`` ('linear' or 'area') as an f32
+    tensor on ``device``, its entries rounded to ``dtype``."""
+    m = torch.from_numpy(_MATRICES[kind](in_size, out_size))
     return m.to(dtype).to(torch.float32).to(device)
 
 
-def _resize(x: torch.Tensor, out_hw: tuple[int, int], h_axis: int) -> torch.Tensor:
-    """Resize the axes ``h_axis`` and ``h_axis + 1`` of ``x`` to ``out_hw``."""
+def _resize(x: torch.Tensor, out_hw: tuple[int, int], h_axis: int,
+            kind: str = "linear") -> torch.Tensor:
+    """Resize the axes ``h_axis`` and ``h_axis + 1`` of ``x`` to ``out_hw``
+    with ``kind``'s matrices."""
     if tuple(x.shape[h_axis:h_axis + 2]) == tuple(out_hw):
         return x
     per_axis = x.dtype != torch.float32
@@ -82,7 +100,7 @@ def _resize(x: torch.Tensor, out_hw: tuple[int, int], h_axis: int) -> torch.Tens
         for axis, out_size in ((h_axis, out_hw[0]), (h_axis + 1, out_hw[1])):
             if y.shape[axis] == out_size:
                 continue
-            m = _resize_matrix(y.shape[axis], out_size, y.device, x.dtype)
+            m = _resize_matrix(y.shape[axis], out_size, y.device, x.dtype, kind)
             y = y.to(torch.float32)
             if axis == y.dim() - 1:
                 y = torch.matmul(y, m.t())
@@ -101,6 +119,11 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 def resize_bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """The same resize on an NCHW tensor."""
     return _resize(x, out_hw, 2)
+
+
+def resize_area(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Torch ``F.interpolate(mode='area')`` (adaptive average pooling). NHWC."""
+    return _resize(x, out_hw, 1, "area")
 
 
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

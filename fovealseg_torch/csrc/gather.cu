@@ -1,4 +1,5 @@
-// Row gather for Hopper (sm_90a): out[b, p, :] = table[b, idx[b, p], :].
+// Row gather for Hopper (sm_90a): out[b, p, :] = table[b, idx[b, p], :],
+// and its backward, a scatter-add of the gradient rows.
 //
 // Replaces: fovealseg_tpu/ops/pallas_gather.py::windowed_row_gather (body
 // _kernel_impl), the full-res score-map gather of the inverse warp, and the
@@ -42,6 +43,22 @@
 //   * kScalar, anything else (a ragged N, a view at an odd storage offset):
 //     the same gather word by word, each block's row offsets staged in shared
 //     memory. Never a fallback to the plain version.
+//
+// Backward (K5b): grad_table[b, idx[b, p], :] += grad_out[b, p, :], the
+// scatter-add that JAX's autodiff makes of the flat gather
+// (core/unwarp.py::_gather_rows_flat under MODEL.loss_at_high_res), into a
+// table the wrapper zeroed. What bounds it: bytes (grad_out and the indices
+// read once, the table written once: 9.2 MB of table and 0.7 GB of grad_out
+// at b8, C = 51, 640x640 over 80x80) and, where many pixels share a row,
+// the serialised atomics on one address (~64 canvas pixels per task cell on
+// average, more at the periphery). Design: the kScalar gather's layout in
+// reverse, one f32 atomicAdd per word. A block owns 256 pixels, stages
+// their clamped row offsets in shared memory and walks its span of
+// grad_out words in order, so a warp reads 32 consecutive words and, at
+// C = 51, adds into consecutive words of one or two rows. The atomics sum
+// in an order that changes from run to run, so the result is not
+// bit-reproducible; a deterministic design (sort by row, then sum each row
+// in pixel order) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -194,6 +211,37 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename Off>
+__global__ void __launch_bounds__(kThreads)
+    scatter_add_rows(const float* __restrict__ grad_out, const int32_t* __restrict__ idx,
+                     float* __restrict__ grad_table, int n, int t, int c) {
+  __shared__ Off row_off[kScalarPix];
+  const int64_t b = blockIdx.y;
+  const int p0 = blockIdx.x * kScalarPix;
+  const int np = min(kScalarPix, n - p0);
+  const int32_t* idx_b = idx + b * n + p0;
+  float* table_b = grad_table + b * t * c;
+  const float* src = grad_out + (b * n + p0) * c;
+  for (int i = threadIdx.x; i < np; i += kThreads) {
+    row_off[i] = static_cast<Off>(clamp_row(__ldcs(idx_b + i), t)) * c;
+  }
+  __syncthreads();
+  const int words = np * c;
+  const int step_p = kThreads / c;
+  const int step_c = kThreads % c;
+  int pix = threadIdx.x / c;
+  int ch = threadIdx.x % c;
+  for (int wi = threadIdx.x; wi < words; wi += kThreads) {
+    atomicAdd(table_b + row_off[pix] + ch, __ldcs(src + wi));
+    pix += step_p;
+    ch += step_c;
+    if (ch >= c) {
+      ch -= c;
+      ++pix;
+    }
+  }
+}
+
+template <typename Off>
 void launch(int variant, const uint32_t* table, const int32_t* idx, uint32_t* out, int b, int n,
             int t, int c, cudaStream_t stream) {
   if (variant == kSmall) {
@@ -239,6 +287,29 @@ extern "C" int fovealseg_row_gather(const void* table, const void* idx, void* ou
     launch<int32_t>(variant, tab, ind, dst, b, nn, t, c, stream);
   } else {
     launch<int64_t>(variant, tab, ind, dst, b, nn, t, c, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_out [b, n, c] float32, idx [b, n] int32, grad_table [b, t, c] float32
+// zeroed by the caller; all contiguous, with the forward's limits (checked by
+// the Python wrapper). Returns the launch's CUDA error.
+extern "C" int fovealseg_row_gather_backward(const void* grad_out, const void* idx,
+                                             void* grad_table, int b, long long n, int t,
+                                             int c, void* stream_handle) {
+  if (b <= 0 || n <= 0 || n >= (1LL << 31) || t <= 0 || c <= 0 || c > 65535 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const auto* src = static_cast<const float*>(grad_out);
+  const auto* ind = static_cast<const int32_t*>(idx);
+  auto* dst = static_cast<float*>(grad_table);
+  const int nn = static_cast<int>(n);
+  const dim3 grid((nn + kScalarPix - 1) / kScalarPix, b);
+  if (static_cast<long long>(t) * c < (1LL << 31)) {
+    scatter_add_rows<int32_t><<<grid, kThreads, 0, stream>>>(src, ind, dst, nn, t, c);
+  } else {
+    scatter_add_rows<int64_t><<<grid, kThreads, 0, stream>>>(src, ind, dst, nn, t, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

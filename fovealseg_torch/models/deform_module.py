@@ -11,24 +11,28 @@ prefixes as the JAX package's parameter subtrees. Public tensors keep the JAX
 layouts (images [B,H,W,3], grids [B,h,w,2], logits [B,h,w,C]); the
 sub-networks run NCHW.
 
-The eval forward and ``infer`` are ported: argmax labels and full-res score
-maps in every ``rev_deform_interp`` ('nearest', 'BI', 'tri'), the
-``y_sampled_reverse`` / ``x_sampled_reverse`` round trips, the
-``MODEL.uniform_sample`` baselines ('BI' bypasses the warp with a plain
-bilinear resize, and both invert it with a plain resize),
-``VAL.F_Xlr_low_scale > 1`` (a smaller saliency input at inference) and
-``MODEL.gt_gradient`` (with labels, the label-edge sampler or the zero-bound
-mask; without them the saliency passes through, as in the JAX package).
-Training, ``xs_override``, ``MODEL.loss_at_high_res`` and
-``TPU.scoremap_gather_bf16`` raise ``NotImplementedError`` naming where they
-go. The module runs under ``no_grad``, so the JAX package's
-``stop_gradient`` on an overridden saliency has nothing to stop here.
+``forward`` is the JAX module's ``__call__``: the eval forward, and with
+``train=True`` the training forward (batch-statistics BN that updates the
+running statistics, dropout from an explicit generator) with gradients,
+``xs_override``, the Recasens pretrain pool (``pool_s``) and
+``MODEL.loss_at_high_res`` (the prediction inverse-warped to full
+resolution: a plain bilinear upsample for the uniform 'BI' baseline, the
+payload flood + row gather for 'nearest', the inverse grid + splat fill for
+'BI'/'tri'; gradients reach the prediction through the row gather's
+backward). The saliency overrides stop the gradient where the JAX module
+does. ``infer`` (argmax labels and full-res score maps in every
+``rev_deform_interp``, the round trips, the uniform baselines,
+``VAL.F_Xlr_low_scale > 1``, ``MODEL.gt_gradient``) runs in eval mode
+under ``no_grad``. ``TPU.scoremap_gather_bf16`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -42,6 +46,9 @@ from fovealseg_torch.core.grid import (
     pad_saliency,
 )
 from fovealseg_torch.core.interpolate import (
+    _area_resize_matrix,
+    _linear_resize_matrix,
+    full_f32_matmul,
     resize_bilinear,
     resize_bilinear_nchw,
     resize_nearest,
@@ -55,6 +62,7 @@ from fovealseg_torch.core.unwarp import (
     unwarp_prediction_fast,
 )
 from fovealseg_torch.core.warp import grid_sample
+from fovealseg_torch.models.layers import dropout_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,8 +140,32 @@ class DeformConfig:
         return GridSolver(grid_h, grid_w, pad_x, int(ap * pad_x), float(self.gaussian_radius))
 
 
+@functools.lru_cache(maxsize=64)
+def _pool_operator(size: int, s: int, device: torch.device) -> torch.Tensor:
+    """``U_s @ P_s`` [size, size]: adaptive average pooling (size -> s) then
+    the bilinear resize back (s -> size), one axis of the Recasens pretrain
+    pool."""
+    m = _linear_resize_matrix(s, size) @ _area_resize_matrix(size, s)
+    return torch.from_numpy(np.ascontiguousarray(m, dtype=np.float32)).to(device)
+
+
+def pretrain_pool(x_sampled: torch.Tensor, pool_s: int, saliency_hw) -> torch.Tensor:
+    """The Recasens pretrain augmentation: pool the warped image to (s, s) and
+    upsample it back, with s clipped to [min(saliency_hw) // 3, min(saliency_hw)]
+    as the JAX package's operator stack clips it. x_sampled [B, th, tw, 3]."""
+    s_min = max(min(saliency_hw) // 3, 1)
+    s = min(max(int(pool_s), s_min), min(saliency_hw))
+    ar = _pool_operator(x_sampled.shape[1], s, x_sampled.device)
+    ac = _pool_operator(x_sampled.shape[2], s, x_sampled.device)
+    with full_f32_matmul():
+        xa = torch.einsum("ij,bjwc->biwc", ar, x_sampled.to(torch.float32))
+        xa = torch.einsum("ij,bhjc->bhic", ac, xa)
+    return xa.to(x_sampled.dtype)
+
+
 class DeformSegmentation(nn.Module):
-    """Foveation + segmentation, eval forward and full-resolution inference.
+    """Foveation + segmentation: the training and eval forwards and
+    full-resolution inference.
 
     ``dtype`` is the sub-networks' compute dtype (params stay f32), as the
     JAX module's ``dtype``. ``device`` defaults to ``cuda`` and raises when
@@ -158,13 +190,28 @@ class DeformSegmentation(nn.Module):
         self.to(self.device)
         self.eval()
 
-    def saliency(self, x: torch.Tensor, focus_point: torch.Tensor) -> torch.Tensor:
-        """Image + gaze -> softmax saliency map [B, gh, gw, 1] (eval).
-        ``VAL.F_Xlr_low_scale > 1`` divides the saliency input size."""
+    @contextlib.contextmanager
+    def _mode(self, train: bool):
+        """Run the block with the sub-networks in train or eval mode, and
+        restore the mode after it."""
+        if self.training == train:
+            yield
+            return
+        self.train(train)
+        try:
+            yield
+        finally:
+            self.train(not train)
+
+    def saliency(self, x: torch.Tensor, focus_point: torch.Tensor,
+                 train: bool = False) -> torch.Tensor:
+        """Image + gaze -> softmax saliency map [B, gh, gw, 1]. At inference
+        (``train=False``) ``VAL.F_Xlr_low_scale > 1`` divides the saliency
+        input size."""
         c = self.config
         solver = c.solver()
         sal_hw = c.saliency_hw
-        if c.f_xlr_low_scale > 1:
+        if not train and c.f_xlr_low_scale > 1:
             sal_hw = (sal_hw[0] // c.f_xlr_low_scale, sal_hw[1] // c.f_xlr_low_scale)
         x_low = resize_bilinear(x, sal_hw)
         fm = focus_distance_map(focus_point, *sal_hw).to(x.dtype)
@@ -181,24 +228,27 @@ class DeformSegmentation(nn.Module):
         saliency passes through): with ``fix_gt_gradient`` the label-edge
         sampler replaces the saliency (except for the uniform-'BI' binary
         config, as in the reference), else the zero-bound border mask
-        applies; then the ``MODEL.uniform_sample`` flattening."""
+        applies; then the ``MODEL.uniform_sample`` flattening. An override
+        (``xs_override``, or ``MODEL.gt_gradient`` with labels) carries no
+        gradient to the saliency nets, as in the JAX module."""
         c = self.config
         if xs_override is not None:
-            raise NotImplementedError(
-                "xs_override arrives with the training slice (ROADMAP queue 1, item 4)")
-        if c.gt_gradient and y is not None:
+            xs = xs_override.detach()
+        elif c.gt_gradient and y is not None:
             if c.fix_gt_gradient and not (c.uniform_sample == "BI" and c.num_class == 2):
                 yy = y.to(torch.float32)
                 for k in c.ignore_gt_labels:
                     yy = torch.where(yy == k, 0.0, yy)
                 xs = edge_target_pil_style(
                     yy, c.saliency_hw, (xs.shape[1], xs.shape[2]), c.gt_grad_blur_r,
-                    softmax=False, zero_bound=c.deform_zero_bound).to(xs.dtype)
-            elif c.deform_zero_bound:
-                bound = c.deform_zero_bound
-                mask = torch.zeros_like(xs)
-                mask[:, bound:-bound, bound:-bound, :] = 1.0
-                xs = xs * mask
+                    softmax=False, zero_bound=c.deform_zero_bound).to(xs.dtype).detach()
+            else:
+                xs = xs.detach()
+                if c.deform_zero_bound:
+                    bound = c.deform_zero_bound
+                    mask = torch.zeros_like(xs)
+                    mask[:, bound:-bound, bound:-bound, :] = 1.0
+                    xs = xs * mask
         if c.uniform_sample != "":
             xs = torch.full_like(xs, 1.0 / (xs.shape[1] * xs.shape[2]))
         return xs
@@ -214,34 +264,73 @@ class DeformSegmentation(nn.Module):
                         task_hw[1] // c.segm_downsampling_rate)
         return solver.create_grid(xs_hm, task_hw, label_hw)
 
-    def _segment(self, x: torch.Tensor, grid: torch.Tensor, task_hw):
-        """Forward warp in the compute dtype + encoder/decoder -> (x_sampled
-        NHWC, pred NHWC). The image is cast before the warp, as the JAX
-        module casts it, so a bf16 warp rounds where the JAX package's does.
-        The uniform-'BI' baseline bypasses the warp with a plain bilinear
-        resize to ``task_hw``."""
+    def _warp(self, x: torch.Tensor, grid: torch.Tensor, task_hw) -> torch.Tensor:
+        """Forward warp in the compute dtype -> x_sampled NHWC. The image is
+        cast before the warp, as the JAX module casts it, so a bf16 warp
+        rounds where the JAX package's does. The uniform-'BI' baseline
+        bypasses the warp with a plain bilinear resize to ``task_hw``."""
         if self.config.uniform_sample == "BI":
-            x_sampled = resize_bilinear(x.to(self.dtype), task_hw)
-        else:
-            x_sampled = grid_sample(x.to(self.dtype), grid)
-        pred = self.decoder(self.encoder(x_sampled.permute(0, 3, 1, 2).contiguous()))
-        return x_sampled, pred.permute(0, 2, 3, 1)
+            return resize_bilinear(x.to(self.dtype), task_hw)
+        return grid_sample(x.to(self.dtype), grid)
 
-    @torch.no_grad()
+    def _segment(self, x_sampled: torch.Tensor) -> torch.Tensor:
+        """Encoder/decoder of the warped image -> pred NHWC."""
+        pred = self.decoder(self.encoder(x_sampled.permute(0, 3, 1, 2).contiguous()))
+        return pred.permute(0, 2, 3, 1)
+
     def forward(self, x: torch.Tensor, focus_point: torch.Tensor, train: bool = False,
-                xs_override=None, y=None):
-        """Warped-domain eval forward: dict(xs, xs_our, grid, grid_y,
-        x_sampled, pred). ``y`` [B, H, W] feeds ``MODEL.gt_gradient``."""
-        if train or self.training:
-            raise NotImplementedError("the training forward arrives with the training slice")
-        if self.config.loss_at_high_res:
-            raise NotImplementedError("MODEL.loss_at_high_res arrives with the training slice")
-        xs_our = self.saliency(x, focus_point)
-        xs = self._apply_overrides(xs_our, y, xs_override)
-        grid, grid_y = self.grids(xs)
-        x_sampled, pred = self._segment(x, grid, self.config.task_hw)
-        return dict(xs=xs, xs_our=xs_our, grid=grid, grid_y=grid_y,
-                    x_sampled=x_sampled, pred=pred)
+                xs_override=None, y=None, pool_s=None, rng: torch.Generator | None = None,
+                grad: bool | None = None):
+        """Warped-domain forward: dict(xs, xs_our, grid, grid_y, x_sampled,
+        pred), plus ``pred_hr`` [B, H/r, W/r, C] f32 under
+        ``MODEL.loss_at_high_res``.
+
+        ``train`` runs the sub-networks in train mode (BN on batch statistics,
+        updating the running ones; dropout drawn from ``rng``, a
+        ``torch.Generator`` on the model's device) for the call. ``grad``
+        (default: ``train``) records gradients: the ``TRAIN.fix_bn`` step
+        passes ``train=False, grad=True``. ``y`` [B, H, W] feeds
+        ``MODEL.gt_gradient``; ``xs_override`` [B, gh, gw, 1] replaces the
+        saliency (detached); ``pool_s`` (a host int, or None) applies the
+        Recasens pretrain pool when >= 0. ``xs_our`` is the saliency before
+        the overrides, through which the norm edge loss trains the saliency
+        nets."""
+        c = self.config
+        grad = train if grad is None else grad
+        with self._mode(train), torch.set_grad_enabled(grad), dropout_generator(rng):
+            xs_our = self.saliency(x, focus_point, train=train)
+            xs = self._apply_overrides(xs_our, y, xs_override)
+            grid, grid_y = self.grids(xs)
+            x_sampled = self._warp(x, grid, c.task_hw)
+            if pool_s is not None and int(pool_s) >= 0:
+                # gated on pool_s alone, not on train: the reference pools in
+                # the TRAIN.fix_bn (eval-mode) training forward too
+                x_sampled = pretrain_pool(x_sampled, pool_s, c.saliency_hw)
+            pred = self._segment(x_sampled)
+            out = dict(xs=xs, xs_our=xs_our, grid=grid, grid_y=grid_y,
+                       x_sampled=x_sampled, pred=pred)
+            if c.loss_at_high_res:
+                out["pred_hr"] = self._pred_high_res(pred, grid, (x.shape[1], x.shape[2]))
+        return out
+
+    def _pred_high_res(self, pred: torch.Tensor, grid: torch.Tensor, hw) -> torch.Tensor:
+        """``MODEL.loss_at_high_res``: the prediction at full resolution, as
+        the JAX module makes it. The flood's indices come from the valid mask
+        only, so the gradient reaches ``pred`` through the row gather (K5's
+        backward) and the samples."""
+        c = self.config
+        pred32 = pred.to(torch.float32)
+        if c.uniform_sample == "BI":
+            return resize_bilinear(pred32, hw)
+        seg_hw = (hw[0] // c.segm_downsampling_rate, hw[1] // c.segm_downsampling_rate)
+        grid = grid.detach()
+        task_idx, valid = inverse_grid_index(grid, seg_hw)
+        jfa_iters = c.jfa_iters or None
+        rounds = None if c.jfa_iters else jfa_rounds_from_grid(grid, seg_hw)
+        if c.rev_deform_interp == "nearest":
+            return unwarp_prediction_fast(pred32, task_idx, valid, jfa_iters, rounds)
+        grid_inv = grid_from_index(task_idx, valid, (grid.shape[1], grid.shape[2]))
+        return unwarp_prediction(pred32, grid_inv, valid, interp=c.rev_deform_interp)
 
     @torch.no_grad()
     def infer(self, x: torch.Tensor, focus_point: torch.Tensor, seg_hw=None, y=None,
@@ -255,11 +344,18 @@ class DeformSegmentation(nn.Module):
         [B, th, tw] and ``y_sampled_reverse`` [B, Hs, Ws] (f32 labels; needs
         ``y`` [B, Hs, Ws]), ``x_sampled_reverse`` [B, Hs, Ws, 3].
         x: [B, H, W, 3] in [0, 1]; focus_point: [B, 2]."""
+        with self._mode(False):
+            return self._infer(x, focus_point, seg_hw, y, y_sampled_reverse, x_sampled_reverse,
+                               argmax_labels)
+
+    def _infer(self, x, focus_point, seg_hw, y, y_sampled_reverse, x_sampled_reverse,
+               argmax_labels):
         c = self.config
         seg_hw = tuple(seg_hw) if seg_hw is not None else (x.shape[1], x.shape[2])
         xs = self._apply_overrides(self.saliency(x, focus_point), y)
         grid, grid_y = self.grids(xs, task_hw=c.task_hw_infer, label_hw=c.task_hw_infer)
-        x_sampled, pred = self._segment(x, grid, c.task_hw_infer)
+        x_sampled = self._warp(x, grid, c.task_hw_infer)
+        pred = self._segment(x_sampled)
         task_idx, valid = inverse_grid_index(grid, seg_hw)
         grid_inv = grid_from_index(task_idx, valid, (grid.shape[1], grid.shape[2]))
         jfa_iters = c.jfa_iters or None

@@ -17,22 +17,22 @@ import torch
 import torch.nn as nn
 
 from fovealseg_torch.core.interpolate import resize_bilinear_nchw
-from fovealseg_torch.models.layers import batch_norm, conv2d
+from fovealseg_torch.models.layers import Dropout, batch_norm, conv2d
 
 STAGE_CHANNELS = ((64, 128), (64, 128, 256), (64, 128, 256, 512))
 
 
 class BasicBlock(nn.Module):
-    """conv-dropout-BN-ReLU, conv-dropout-BN, residual ReLU (dropout 0.3 is
+    """conv-dropout-BN-ReLU, conv-dropout-BN, residual ReLU (dropout 0.3,
     inert in eval)."""
 
     def __init__(self, inplanes: int, planes: int, dtype=torch.float32, drop_rate: float = 0.3):
         super().__init__()
         self.conv1 = conv2d(inplanes, planes, 3, 1, 1, use_bias=False, dtype=dtype)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = Dropout(drop_rate)
         self.bn1 = batch_norm(planes, dtype)
         self.conv2 = conv2d(planes, planes, 3, 1, 1, use_bias=False, dtype=dtype)
-        self.dropout2 = nn.Dropout(drop_rate)
+        self.dropout2 = Dropout(drop_rate)
         self.bn2 = batch_norm(planes, dtype)
 
     def forward(self, x):

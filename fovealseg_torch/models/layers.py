@@ -5,7 +5,15 @@ one for one); each layer computes in the ``dtype`` it was built with, as the
 JAX modules' ``dtype`` does: a conv or linear layer casts its input and its
 weights to that type, and BatchNorm normalizes in f32 and returns that type.
 Under ``torch.no_grad`` the cast weights are cached until the parameter
-changes. BN follows SyncBN eval semantics: eps 1e-5, running statistics.
+changes.
+
+BN follows the JAX package's flax BatchNorm: eps 1e-5; in eval mode it
+normalises with the running statistics; in train mode with the batch's
+(biased) statistics, and it updates the running ones in place with momentum
+0.1 (flax's 0.9) and the **biased** batch variance, as flax does
+(``nn.BatchNorm2d`` would fold in the unbiased one). ``Dropout`` draws its
+mask from an explicit ``torch.Generator``, installed for a forward by
+:func:`dropout_generator` (the counterpart of ``rngs={'dropout': rng}``).
 
 Init mirrors the JAX package: Kaiming-normal (fan_in) conv and linear
 weights, zero biases, BN scale 1 and bias 1e-4.
@@ -13,6 +21,7 @@ weights, zero biases, BN scale 1 and bias 1e-4.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -52,15 +61,68 @@ class Conv2d(_CastCache, nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """SyncBN-semantics BN (eps 1e-5, torch momentum 0.1 == flax 0.9);
-    normalizes in f32 and returns ``dtype``."""
+    """flax-semantics BN (eps 1e-5, torch momentum 0.1 == flax 0.9);
+    normalizes in f32 and returns ``dtype``. In train mode the running
+    variance takes the biased batch variance, and ``num_batches_tracked``
+    stays 0, as the JAX package's exports write it."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x).to(self.compute_dtype)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps).to(self.compute_dtype)
+        # PyTorch updates a running variance with the unbiased vu = vb * n / (n - 1):
+        # upd = (1 - m) * old + m * vu. The biased update (1 - m) * old + m * vb is
+        # upd * (1 - 1/n) + (1 - m) * old / n. The op updates a copy (autograd
+        # keeps it), and the buffer takes the biased value from it.
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        upd = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, upd, self.weight, self.bias, True, m, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - m) / n).add_(upd, alpha=1.0 - 1.0 / n)
+        return out.to(self.compute_dtype)
+
+
+class _DropoutRng:
+    generator: torch.Generator | None = None
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: torch.Generator | None):
+    """Train-mode ``Dropout`` layers inside the block draw from ``generator``
+    (on the activations' device)."""
+    prev = _DropoutRng.generator
+    _DropoutRng.generator = generator
+    try:
+        yield
+    finally:
+        _DropoutRng.generator = prev
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode keep each element with probability
+    1 - p and divide it by 1 - p; the mask comes from the generator that
+    :func:`dropout_generator` installed, and a train-mode call without one
+    raises. Inert in eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        gen = _DropoutRng.generator
+        if gen is None:
+            raise RuntimeError("train-mode dropout needs a torch.Generator: run the forward "
+                               "with DeformSegmentation(..., train=True, rng=generator)")
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=gen)
+        return x * mask / keep
 
 
 class Linear(_CastCache, nn.Linear):

@@ -16,6 +16,18 @@ context is entered only when the tensors are not on the current device.
 
 The kernel's launch count is ``row_gather.launches``: one per call that
 launched it.
+
+**Gradient (K5b).** A float32 table that requires grad, with gradients on,
+goes through :class:`RowGather`: its forward is the gather above, its
+backward ``row_gather_backward``, the scatter-add
+``grad[b, idx[b, p], :] += grad_out[b, p, :]`` into a zeroed [B, T, C]
+table (the JAX package's autodiff of the flat gather). On a CUDA tensor the
+backward launches the hand-written kernel (``csrc/gather.cu``, one f32
+``atomicAdd`` per word, so its sums are not bit-reproducible: they agree
+with the plain version's to rounding); on a CPU tensor it takes
+``row_gather_backward_plain``, an ``index_add_`` over the flattened table.
+Its launch count is ``row_gather_backward.launches``. A CUDA table that
+requires grad never loses its gradient: it takes the Function or raises.
 """
 
 from __future__ import annotations
@@ -81,49 +93,141 @@ def row_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K5. values [B, T, C] float32 or int32; idx [B, ...] int32 ->
     [B, ..., C] of ``values``' dtype. CPU tensors take the plain version;
     CUDA tensors launch the kernel, in :func:`gather_variant`'s variant, or
-    raise."""
+    raise. A table that requires grad (gradients on) goes through
+    :class:`RowGather`, so its gradient is K5b's scatter-add."""
     _check(values, idx)
-    dev = values.device
+    if values.requires_grad and torch.is_grad_enabled():
+        if values.dtype != torch.float32:
+            raise ValueError("row_gather's gradient needs a float32 table")
+        return RowGather.apply(values, idx)
+    return _gather(values, idx)
+
+
+def _on_card(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors (contiguous, or raise), False for CPU ones."""
+    dev = tensors[0].device
     if dev.type == "cpu":
-        return row_gather_plain(values, idx)
+        return False
     if dev.type != "cuda":
-        raise ValueError(f"row_gather runs on cpu or cuda tensors, not {dev}")
-    if not (values.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("row_gather needs contiguous values and idx")
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+    return True
+
+
+def _limits(name: str, b: int, n: int) -> None:
+    if b >= 65536 or n >= 2**31:
+        raise ValueError(f"{name} of {b} x {n} rows exceeds the kernel's limits")
+
+
+def _call(fn, dev: torch.device, *args) -> None:
+    """Call a C entry point on ``dev``'s current stream; raise on its error."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA error {err}")
+
+
+def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather without autograd: the plain version on the CPU, K5 on the
+    card."""
+    if not _on_card("row_gather", values, idx):
+        return row_gather_plain(values, idx)
+    dev = values.device
     b, t, c = values.shape
     n = idx.numel() // b if b else 0
-    if b >= 65536 or n >= 2**31:
-        raise ValueError(f"row_gather of {b} x {n} rows exceeds the kernel's limits")
+    _limits("row_gather", b, n)
     out = torch.empty((*idx.shape, c), dtype=values.dtype, device=dev)
     if out.numel() == 0:
         return out
     ptrs = (values.data_ptr(), idx.data_ptr(), out.data_ptr())
     variant = gather_variant(c, n, *ptrs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if dev.index == torch.cuda.current_device():
-        err = _kernel()(*ptrs, b, n, t, c, variant, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = _kernel()(*ptrs, b, n, t, c, variant, stream)
-    if err != 0:
-        raise RuntimeError(f"row_gather kernel launch failed with CUDA error {err}")
+    _call(_kernel("fovealseg_row_gather"), dev, *ptrs, b, n, t, c, variant)
     row_gather.launches += 1
     return out
 
 
+def row_gather_backward_plain(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    """Plain PyTorch version of K5b: ``index_add_`` of the gradient rows
+    grad_out [B, ..., C] float32 into a zeroed [B*T, C] table at the clamped
+    flat indices of idx [B, ...] int32 -> [B, T, C]."""
+    b, c = idx.shape[0], grad_out.shape[-1]
+    off = torch.arange(b, dtype=torch.int64, device=idx.device).view(b, 1) * t
+    flat = idx.reshape(b, -1).to(torch.int64).clamp(0, t - 1) + off
+    grad = torch.zeros((b * t, c), dtype=grad_out.dtype, device=grad_out.device)
+    grad.index_add_(0, flat.reshape(-1), grad_out.reshape(-1, c))
+    return grad.reshape(b, t, c)
+
+
+def row_gather_backward(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    """K5b: the gradient of ``row_gather`` with respect to its [B, T, C]
+    table, ``grad[b, idx[b, p], :] += grad_out[b, p, :]`` (indices clamped to
+    [0, T) as the forward clamps them). grad_out [B, ..., C] float32, idx
+    [B, ...] int32. CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    b = idx.shape[0]
+    c = grad_out.shape[-1]
+    if grad_out.dtype != torch.float32 or tuple(grad_out.shape[:-1]) != tuple(idx.shape):
+        raise ValueError(f"grad_out must be float32 [*idx.shape, C], got "
+                         f"{tuple(grad_out.shape)} {grad_out.dtype} for idx {tuple(idx.shape)}")
+    if idx.dtype != torch.int32 or idx.device != grad_out.device:
+        raise ValueError("idx must be int32 on grad_out's device")
+    if t <= 0 or not 0 < c < 65536:
+        raise ValueError(f"row_gather_backward needs rows and 1..65535 channels (T={t}, C={c})")
+    if not _on_card("row_gather_backward", grad_out, idx):
+        return row_gather_backward_plain(grad_out, idx, t)
+    n = idx.numel() // b if b else 0
+    _limits("row_gather_backward", b, n)
+    grad = torch.zeros((b, t, c), dtype=torch.float32, device=grad_out.device)
+    if n == 0 or b == 0:
+        return grad
+    _call(_kernel("fovealseg_row_gather_backward"), grad_out.device, grad_out.data_ptr(),
+          idx.data_ptr(), grad.data_ptr(), b, n, t, c)
+    row_gather_backward.launches += 1
+    return grad
+
+
+class RowGather(torch.autograd.Function):
+    """``row_gather`` with a gradient for the table: forward K5 (or the plain
+    gather on the CPU), backward K5b (or ``row_gather_backward_plain``)."""
+
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = values.shape[1]
+        return _gather(values, idx)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (idx,) = ctx.saved_tensors
+        return row_gather_backward(grad_out.contiguous(), idx, ctx.rows), None
+
+
 row_gather.launches = 0
-_fn = None
+row_gather_backward.launches = 0
+_ARGTYPES = {
+    "fovealseg_row_gather": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_void_p],
+    "fovealseg_row_gather_backward": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                                              ctypes.c_int, ctypes.c_int,
+                                                              ctypes.c_void_p],
+}
+_fns: dict = {}
 
 
-def _kernel():
-    """The C entry point, resolved once (built at first use)."""
-    global _fn
-    if _fn is None:
+def _kernel(name: str = "fovealseg_row_gather"):
+    """A C entry point of ``csrc/gather.cu``, resolved once (built at first use)."""
+    fn = _fns.get(name)
+    if fn is None:
         from fovealseg_torch.ops.build import load
 
-        fn = load("gather").fovealseg_row_gather
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn = getattr(load("gather"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn

@@ -12,6 +12,13 @@
   ``{saliency,compress,encoder,decoder}_epoch_N.pth`` into a model.
 * :func:`load_torch_weight_files` loads per-network files named one by one,
   the ``MODEL.weights_{encoder,decoder,net_saliency,net_compress}`` surface.
+* :func:`save_checkpoint` / :func:`load_checkpoint` are the port's training
+  checkpoint: the same 4-file set (what the JAX package's
+  ``load_torch_checkpoint`` reads) plus ``train_state_epoch_{N}.pth`` with the
+  optimizer state, the step count, the dropout generator's state and the
+  pretrain-pool draw's state. Each numbered epoch also refreshes the
+  ``_last`` copies; an off-cadence epoch writes only those. Writes are
+  synchronous, the ``_last`` files after the numbered ones.
 """
 
 from __future__ import annotations
@@ -97,3 +104,58 @@ def load_torch_weight_files(model: torch.nn.Module, paths: Mapping[str, str]) ->
         getattr(model, SUBMODULE_OF_FILE[kind]).load_state_dict(sd, strict=True)
         loaded.append(kind)
     return loaded
+
+
+def _write(path: str, obj) -> None:
+    """``torch.save`` through a temporary file, so a crash leaves the old file."""
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> list[str]:
+    """Write ``state`` (``train/step.py::TrainState``) for ``epoch``: the
+    4-file set ``{kind}_epoch_{epoch}.pth`` and ``train_state_epoch_{epoch}.pth``,
+    then the ``_last`` copies; with ``only_last`` just the ``_last`` files.
+    Returns the written paths."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    files = {kind: {k[len(sub) + 1:]: v for k, v in sd.items() if k.startswith(sub + ".")}
+             for kind, sub in SUBMODULE_OF_FILE.items()}
+    files["train_state"] = {
+        "optimizer": state.optimizer.state_dict(),
+        "step": int(state.step),
+        "generator": state.generator.get_state(),
+        "pool_rng": state.pool_rng.getstate(),
+    }
+    written = []
+    for tag in (["last"] if only_last else [epoch, "last"]):
+        for kind, obj in files.items():
+            path = os.path.join(ckpt_dir, f"{kind}_epoch_{tag}.pth")
+            _write(path, obj)
+            written.append(path)
+    return written
+
+
+def has_checkpoint(ckpt_dir: str, epoch) -> bool:
+    """Whether ``ckpt_dir`` holds the port's full checkpoint for ``epoch``."""
+    return all(os.path.exists(os.path.join(ckpt_dir, f"{kind}_epoch_{epoch}.pth"))
+               for kind in (*SUBMODULE_OF_FILE, "train_state"))
+
+
+def load_checkpoint(ckpt_dir: str, epoch, state) -> None:
+    """Restore ``state`` in place from ``save_checkpoint``'s files for
+    ``epoch`` (a number or 'last'): weights and BN statistics strictly, then
+    the optimizer, the step, the dropout generator and the pool draw."""
+    load_torch_checkpoint(state.model, ckpt_dir, epoch)
+    ts = torch.load(os.path.join(ckpt_dir, f"train_state_epoch_{epoch}.pth"),
+                    map_location="cpu", weights_only=True)
+    state.optimizer.load_state_dict(ts["optimizer"])
+    state.step = int(ts["step"])
+    state.generator.set_state(ts["generator"])
+    state.pool_rng.setstate(_as_tuple(ts["pool_rng"]))
+
+
+def _as_tuple(v):
+    """``random.Random.getstate()``'s nested tuples back from a checkpoint."""
+    return tuple(_as_tuple(x) for x in v) if isinstance(v, (list, tuple)) else v

@@ -1,0 +1,224 @@
+"""Train and eval steps (counterpart of ``fovealseg_tpu/train/step.py``).
+
+``compute_losses`` assembles the training loss as the JAX package does:
+the label warped through ``grid_y`` and truncated to ids, the ground truth
+``y * cls + (1 - y) * bg``, Dice + Focal(gamma=5) + the joint edge loss
+(optional entropy regulariser), and the warped-domain accuracy family.
+
+The state is a :class:`TrainState`: the model, its optimizer, the step
+count, the dropout generator and the pretrain-pool draw. A train step
+sets each parameter group's learning rate from the schedule at the step
+count before the update (as optax's ``scale_by_schedule`` counts), runs the
+training forward with gradients, the backward and the optimizer's update, in
+place. Metrics are 0-d tensors on the model's device; nothing here waits
+for the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+
+import torch
+
+from fovealseg_torch.core import losses as L
+from fovealseg_torch.core import metrics as M
+from fovealseg_torch.core.edges import edge_target_pil_style
+from fovealseg_torch.core.interpolate import resize_area, resize_bilinear, resize_nearest
+from fovealseg_torch.core.warp import grid_sample
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a train step updates: the model (parameters and BN statistics),
+    its optimizer, the step count, the dropout generator (on the model's
+    device) and the host generator of the pretrain pool size."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+    generator: torch.Generator
+    pool_rng: random.Random
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Static loss knobs from the cfg tree (the JAX package's fields)."""
+
+    num_class: int = 51
+    edge_loss_scale: float = 100.0
+    edge_norm: bool = True  # TRAIN.opt_deform_LabelEdge_norm
+    deform_joint_loss: bool = True
+    focal_gamma: float = 5.0
+    entropy_reg_weight: float = 0.0  # TRAIN.entropy_regularisation(_weight)
+    edge_target_softmax: bool = False  # TRAIN.opt_deform_LabelEdge_softmax
+    edge_zero_bound: int = 0  # TRAIN.deform_zero_bound(_factor)
+    edge_blur_radius: float = 1.0  # MODEL.gt_grad_gaussian_blur_r
+    saliency_hw: tuple = (80, 80)
+    uniform_bi: bool = False  # MODEL.uniform_sample == 'BI': plain label downsample
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "LossConfig":
+        return cls(
+            num_class=cfg.DATASET.num_class,
+            edge_loss_scale=cfg.TRAIN.edge_loss_scale,
+            edge_norm=cfg.TRAIN.opt_deform_LabelEdge_norm,
+            deform_joint_loss=cfg.TRAIN.deform_joint_loss,
+            focal_gamma=5.0,  # hard-coded in the reference
+            entropy_reg_weight=(cfg.TRAIN.entropy_regularisation_weight
+                                if cfg.TRAIN.entropy_regularisation else 0.0),
+            edge_target_softmax=cfg.TRAIN.opt_deform_LabelEdge_softmax,
+            edge_zero_bound=(cfg.TRAIN.deform_zero_bound_factor
+                             if cfg.TRAIN.deform_zero_bound else 0),
+            edge_blur_radius=float(cfg.MODEL.gt_grad_gaussian_blur_r),
+            saliency_hw=tuple(cfg.TRAIN.saliency_input_size),
+            uniform_bi=cfg.MODEL.uniform_sample == "BI",
+        )
+
+
+def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None):
+    """out: the ``DeformSegmentation`` forward dict; batch: ``seg_label``
+    [B, H, W] binary mask, ``cls_label`` [B] int, optionally ``edge_scale``
+    (a float overriding ``TRAIN.edge_loss_scale``) and ``edge_only`` (a bool:
+    the step trains on the edge loss alone, the ``fix_seg`` window).
+    Returns (loss, metrics dict of detached 0-d tensors)."""
+    y = batch["seg_label"].to(torch.float32)
+    cls = batch["cls_label"].to(torch.int32).reshape(-1)
+    xs = out["xs"]
+    pred = out["pred"].to(torch.float32)
+    bg = lcfg.num_class - 1
+
+    gh, gw = xs.shape[1], xs.shape[2]
+    if lcfg.edge_norm:
+        xs_target = resize_area(y[..., None], (gh, gw))
+    else:
+        xs_target = edge_target_pil_style(
+            y, lcfg.saliency_hw, (gh, gw), lcfg.edge_blur_radius,
+            softmax=lcfg.edge_target_softmax, zero_bound=lcfg.edge_zero_bound)
+    if edge_scale is None:
+        edge_scale = batch.get("edge_scale")
+    scale = lcfg.edge_loss_scale if edge_scale is None else edge_scale
+    # the norm edge loss trains on the saliency before the overrides, so the
+    # saliency nets keep learning under gt_gradient / uniform overrides
+    xs_edge = out.get("xs_our", xs) if lcfg.edge_norm else xs
+    e_loss = L.edge_loss(xs_edge, xs_target, scale, lcfg.edge_norm)
+
+    grid_y = out["grid_y"].detach()  # the labels below are truncated ids: no gradient
+    if lcfg.uniform_bi:
+        y_sampled = resize_bilinear(y[..., None], (grid_y.shape[1], grid_y.shape[2]))[..., 0]
+    else:
+        y_sampled = grid_sample(y[..., None], grid_y)[..., 0]
+    label = y_sampled.to(torch.int32)
+    gt = label * cls[:, None, None] + (1 - label) * bg
+
+    if "pred_hr" in out:
+        # MODEL.loss_at_high_res: the seg loss on the full-res prediction
+        pred_hr = out["pred_hr"].to(torch.float32)
+        y_hr = y
+        if tuple(y.shape[1:3]) != tuple(pred_hr.shape[1:3]):
+            y_hr = resize_nearest(y[..., None], tuple(pred_hr.shape[1:3]))[..., 0]
+        label_hr = y_hr.to(torch.int32)
+        loss_pred, loss_gt = pred_hr, label_hr * cls[:, None, None] + (1 - label_hr) * bg
+    else:
+        loss_pred, loss_gt = pred, gt
+
+    focal = L.focal_loss(loss_pred, loss_gt, lcfg.focal_gamma)
+    dice = L.dice_loss_multiclass(loss_pred, loss_gt)
+    loss = dice + focal
+    if lcfg.deform_joint_loss:
+        loss = loss + e_loss
+    if lcfg.entropy_reg_weight:
+        p_flat = xs.reshape(xs.shape[0], -1)
+        ent = -torch.sum(p_flat * torch.log(p_flat + 1e-12), dim=-1)
+        loss = loss - lcfg.entropy_reg_weight * torch.mean(ent)
+
+    with torch.no_grad():
+        acc = M.pixel_acc(loss_pred, loss_gt, bg)
+    if batch.get("edge_only"):
+        # the fix_seg window: the step trains on the edge loss alone and logs
+        # the (degenerate) edge accuracy, as the reference does
+        loss = e_loss
+        tgt_acc = L.minmax_normalize(xs_target) if lcfg.edge_norm else xs_target
+        acc = torch.mean((torch.floor(tgt_acc) == 0.0).to(torch.float32))
+
+    with torch.no_grad():
+        mets = {
+            "loss": loss.detach(),
+            "dice_loss": dice.detach(),
+            "focal_loss": focal.detach(),
+            "edge_loss": e_loss.detach(),
+            "acc": acc.detach(),
+            "acc_bin_fg": M.fg_bin_pixel_acc(loss_pred, loss_gt, bg),
+            "acc_cls_fbg": M.fbg_cls_pixel_acc(loss_pred, loss_gt, bg),
+            "acc_bin_fbg": M.fbg_bin_pixel_acc(loss_pred, loss_gt, bg),
+        }
+    return loss, mets
+
+
+def _forward(state: TrainState, batch: dict, train: bool, grad: bool) -> dict:
+    model = state.model
+    y = batch["seg_label"] if model.config.gt_gradient else None
+    return model(batch["img_data"], batch["focus_point"], train=train, y=y,
+                 pool_s=batch.get("pool_s"), rng=state.generator, grad=grad)
+
+
+def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False):
+    """Returns ``train_step(state, batch) -> metrics``, which updates
+    ``state`` in place. ``schedules`` maps a group's ``schedule`` key to
+    ``step -> lr factor`` (``train/optim.py``).
+
+    ``fix_bn`` (``TRAIN.fix_bn``): the reference trains with the module in
+    eval mode, so BN uses (and never updates) the running statistics and
+    dropout is off, while gradients still flow."""
+    from fovealseg_torch.train.optim import set_learning_rates
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        set_learning_rates(state.optimizer, schedules, state.step)
+        out = _forward(state, batch, train=not fix_bn, grad=True)
+        loss, mets = compute_losses(out, batch, lcfg)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return mets
+
+    return train_step
+
+
+def make_forward_only_step(lcfg: LossConfig, fix_bn: bool = False):
+    """``MODEL.gt_gradient_intrinsic_only``: the training forward and the
+    metrics, no backward and no update (BN running statistics still update
+    unless ``fix_bn``); the step count advances."""
+
+    def forward_only_step(state: TrainState, batch: dict) -> dict:
+        out = _forward(state, batch, train=not fix_bn, grad=False)
+        _, mets = compute_losses(out, batch, lcfg)
+        state.step += 1
+        return mets
+
+    return forward_only_step
+
+
+def make_eval_step(lcfg: LossConfig):
+    """Warped-domain eval step: the eval forward and the loss/accuracy
+    metrics, without gradients."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        out = _forward(state, batch, train=False, grad=False)
+        _, mets = compute_losses(out, batch, lcfg)
+        return mets
+
+    return eval_step
+
+
+def init_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int,
+               fix_bn: bool = False) -> TrainState:
+    """A fresh state at step 0: the model put in train mode (eval mode under
+    ``fix_bn``), the dropout generator on the model's device seeded with
+    ``seed``, the pool draw's host generator too."""
+    model.train(not fix_bn)
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return TrainState(model, optimizer, 0, gen, random.Random(seed))

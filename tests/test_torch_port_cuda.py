@@ -442,3 +442,74 @@ def test_edge_target_on_card_matches_host(dev):
     img = torch.from_numpy(rng.uniform(0, 1, (2, 40, 48, 1)).astype(np.float32))
     torch.testing.assert_close(pil_find_edges(img.to(dev)).cpu(), pil_find_edges(img),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,t,c,hw", [(8, 6400, 51, (64, 64)), (8, 6400, 1, (640, 640)),
+                                      (2, 4096, 2, (64, 64)), (3, 1000, 3, (33, 70)),
+                                      (1, 5, 300, (9, 9))])
+def test_row_gather_backward_within_tolerance_of_plain(dev, b, t, c, hw):
+    """K5b against ``row_gather_backward_plain``. Its f32 atomics sum in no
+    fixed order, so each element is held within 1e-5 of the sum of its
+    terms' absolute values (a reordered f32 sum of k terms moves by at most
+    ~k * 6e-8 of them); indices outside [0, T) are clamped in both."""
+    from fovealseg_torch.ops.gather import row_gather_backward, row_gather_backward_plain
+
+    rng = np.random.default_rng(b * t + c)
+    idx = torch.from_numpy(rng.integers(-3, t + 3, (b, *hw)).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=(b, *hw, c)).astype(np.float32))
+    before = row_gather_backward.launches
+    got = row_gather_backward(g.to(dev), idx.to(dev), t)
+    torch.cuda.synchronize()
+    assert row_gather_backward.launches == before + 1
+    ref = row_gather_backward_plain(g, idx, t)
+    scale = row_gather_backward_plain(g.abs(), idx, t)
+    assert got.shape == (b, t, c) and got.dtype == torch.float32
+    assert ((got.cpu() - ref).abs() <= 1e-5 * scale + 1e-30).all()
+
+
+def test_row_gather_gradient_runs_k5b_on_card(dev):
+    """A CUDA table that requires grad goes through ``RowGather``: the
+    forward launches K5 (bit-equal to the plain gather) and the backward K5b,
+    whose gradient equals the host's autograd one within the stated
+    tolerance; a table that does not require grad takes no Function."""
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.normal(size=(2, 256, 51)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 256, (2, 64, 64)).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=(2, 64, 64, 51)).astype(np.float32))
+    tc = table.to(dev).requires_grad_(True)
+    f0, b0 = row_gather.launches, row_gather_backward_launches()
+    out = row_gather(tc, idx.to(dev))
+    assert out.grad_fn is not None
+    (out * w.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    assert row_gather.launches == f0 + 1 and row_gather_backward_launches() == b0 + 1
+    th = table.clone().requires_grad_(True)
+    ref = row_gather(th, idx)
+    (ref * w).sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(tc.grad.cpu(), th.grad, rtol=1e-5, atol=1e-5)
+    assert row_gather(table.to(dev), idx.to(dev)).grad_fn is None
+    with pytest.raises(ValueError):  # a float64 table has no kernel, with or without grad
+        row_gather(torch.zeros((2, 256, 51), dtype=torch.float64, device=dev,
+                               requires_grad=True), idx.to(dev))
+
+
+def row_gather_backward_launches() -> int:
+    from fovealseg_torch.ops.gather import row_gather_backward
+
+    return row_gather_backward.launches
+
+
+def test_row_gather_backward_rejects_bad_inputs(dev):
+    from fovealseg_torch.ops.gather import row_gather_backward
+
+    idx = torch.zeros((2, 4, 5), dtype=torch.int32, device=dev)
+    g = torch.randn((2, 4, 5, 3), device=dev)
+    with pytest.raises(ValueError):
+        row_gather_backward(g.to(torch.float16), idx, 10)
+    with pytest.raises(ValueError):
+        row_gather_backward(g, idx.to(torch.int64), 10)
+    with pytest.raises(ValueError):
+        row_gather_backward(g.transpose(1, 2), idx.transpose(1, 2), 10)
+    with pytest.raises(ValueError):
+        row_gather_backward(g[:, :3], idx, 10)

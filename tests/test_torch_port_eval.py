@@ -558,7 +558,12 @@ def test_cli_refuses(tmp_path, opt):
         args += ["--data", str(tmp_path)]
         opt = []
     elif opt == "resume":
-        opt = ["TRAIN.start_epoch", "3", "DIR", str(tmp_path)]
+        # TRAIN.start_epoch resumes from the port's training checkpoint in
+        # DIR (test_torch_port_train_cli.py); an empty DIR has none to load
+        with pytest.raises(FileNotFoundError, match="saliency_epoch_3.pth"):
+            port_cli.main(args + TINY_OPTS + ["VAL.batch_size", "1", "TRAIN.start_epoch", "3",
+                                              "DIR", str(tmp_path)])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|unset|JAX"):
         port_cli.main(args + TINY_OPTS + ["VAL.batch_size", "1"] + opt)
 
