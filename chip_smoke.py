@@ -39,14 +39,14 @@ Phases (any failure exits non-zero):
         'BI', ``MODEL.uniform_sample='nearest'`` and ``'BI'``; eval frames/s,
         host ms per sample of the boundary metrics and of the 'tri' plan;
      d. training: the row gather's backward (K5b) against its plain version
-        (``index_add_``) at C = 51, 1, 2 and 3 on the flagship's inverse-warp
-        indices, within a stated tolerance (its atomics sum in no fixed
-        order), with times beside ``index_add_``'s; one train step of the
-        tiny pair on the card against the host (loss, the four groups'
-        gradients, updated parameters, BN statistics; TF32 off), and one
-        ``MODEL.loss_at_high_res`` step each in 'nearest' and 'BI' whose
-        saliency-net gradients must be non-zero and match the host's; the
-        flagship's default training step at b8 in float32 and bfloat16
+        on the flagship's inverse-warp indices, 'nearest' and 'BI' at C = 51
+        and C = 1, 2, 3, bit-equal and the same over two launches, with times
+        beside ``index_add_``'s and the deterministic ``index_put_``'s; one
+        train step of the tiny pair on the card against the host (loss, the
+        four groups' gradients, updated parameters, BN statistics; TF32 off),
+        and one ``MODEL.loss_at_high_res`` step each in 'nearest' and 'BI'
+        whose saliency-net gradients must be non-zero and match the host's;
+        the flagship's default training step at b8 in float32 and bfloat16
         (samples/s, device-busy ms and idle share over two profiled steps,
         kernels per step, every loss finite); the flagship with
         ``MODEL.loss_at_high_res`` at b8 (K2, K5 and K5b once per step;
@@ -690,66 +690,67 @@ def train_cfg(*opts):
 
 def check_k5b(device):
     """Phase 3d: K5b against its plain version at the flagship's inverse-warp
-    indices (``tools/profile_gather.py::flagship_cases``: C = 51 and 1 at
-    K2's output, 2 and 3 at K4's), on random f32 gradient rows. Its atomics
-    sum in no fixed order, so each element is held within 1e-5 of the plain
-    sum's absolute terms (a reordered f32 sum of k terms moves by at most
-    ~k * 6e-8 of them; k is ~64 on average and a few thousand at most)."""
+    indices (``tools/profile_gather.py::k5b_cases``: 'nearest' and 'BI' at
+    C = 51, the two shapes ``MODEL.loss_at_high_res`` trains with, then C =
+    1 at K2's output and 2 and 3 at K4's, which no path launches), on random
+    f32 gradient rows: bit-equal (both sum each row in ascending pixel
+    order) and the same bits over two launches, with times beside the atomic
+    ``index_add_`` and the deterministic ``index_put_(accumulate=True)``
+    (whose bits are checked for repeating)."""
     import torch
 
     from fovealseg_torch.ops.gather import row_gather_backward, row_gather_backward_plain
-    from fovealseg_torch.tools.profile_gather import device_ms, events_ms, flagship_cases, loop_ms
+    from fovealseg_torch.tools.profile_gather import (device_ms, events_ms, k5b_bound_ms,
+                                                      k5b_cases, k5b_libraries, loop_ms)
 
     cases = []
-    gen = torch.Generator(device=device).manual_seed(SEED + 20)
-    for label, table, idx in flagship_cases(device, SEED + 21):
-        b, t, c = table.shape
-        n = idx.shape[1]
-        g = torch.randn((b, n, c), generator=gen, device=device)
-        k_out = row_gather_backward(g, idx, t)
+    for label, g, idx, t in k5b_cases(device, SEED + 21):
+        c = g.shape[-1]
+        first = row_gather_backward(g, idx, t)
+        second = row_gather_backward(g, idx, t)
         ref = row_gather_backward_plain(g, idx, t)
-        scale = row_gather_backward_plain(g.abs(), idx, t)
         torch.cuda.synchronize()
-        err = (k_out - ref).abs()
-        ratio = float((err / scale.clamp(min=1e-30)).max())
-        max_abs = float(err.max())
-        if not ratio <= 1e-5:
-            raise AssertionError(f"row_gather_backward [{label}]: {ratio:.3g} of the absolute "
-                                 f"terms off the plain version (limit 1e-5)")
-        del k_out, ref, scale, err
-        off32 = torch.arange(b, device=device, dtype=torch.int32).view(b, 1) * t
-        flat32 = (idx + off32).view(-1)
-        g2 = g.view(-1, c)
-
-        def library():
-            return torch.zeros((b * t, c), device=device).index_add_(0, flat32, g2)
+        if not torch.equal(first.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"row_gather_backward kernel != plain on {label}: "
+                                 f"{(first != ref).sum().item()} elements differ")
+        if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+            raise AssertionError(f"row_gather_backward [{label}]: two launches differ")
+        libs = k5b_libraries(g, idx, t)
+        det = [libs["index_put_deterministic"]() for _ in range(2)]
+        det_repeats = torch.equal(det[0].view(torch.int32), det[1].view(torch.int32))
+        det_equal = torch.equal(det[0].view(torch.int32),
+                                ref.reshape(det[0].shape).view(torch.int32))
+        del first, second, ref, det
 
         def kernel():
             return row_gather_backward(g, idx, t)
 
-        def plain():
-            return row_gather_backward_plain(g, idx, t)
-
-        bound = (b * n * c * 4 + b * n * 4 + b * t * c * 4) / HBM_BYTES_PER_S * 1e3
-        r = dict(label=label, channels=c, max_abs_err=max_abs, err_over_abs_terms=ratio,
-                 ms=events_ms(kernel, 20), loop_ms=loop_ms(kernel, 20),
-                 device_ms=device_ms(kernel, 20)[0], plain_ms=events_ms(plain, 5, warmup=1),
-                 library_ms=events_ms(library, 20), library_device_ms=device_ms(library, 20)[0],
-                 bound_ms=bound)
-        log(f"row_gather_backward [{label}]: max abs err {max_abs:.3g} ({ratio:.3g} of the "
-            f"absolute terms); kernel {r['ms']:.4f} ms events, {r['loop_ms']:.4f} ms back to "
-            f"back, {r['device_ms']:.4f} ms device (zero fill included); plain "
-            f"{r['plain_ms']:.4f} ms; index_add_ int32 {r['library_ms']:.4f} ms events, "
-            f"{r['library_device_ms']:.4f} ms device; bound {bound:.4f} ms (bytes)")
+        dev_ms, per_call, _ = device_ms(kernel, 20)
+        per_call = round(per_call)  # the profiler drops a kernel event now and then
+        r = dict(label=label, channels=c, max_abs_err=0.0, bit_equal=True,
+                 ms=events_ms(kernel, 20), loop_ms=loop_ms(kernel, 20), device_ms=dev_ms,
+                 kernels_per_call=per_call,
+                 plain_ms=events_ms(lambda: row_gather_backward_plain(g, idx, t), 3, warmup=1),
+                 bound_ms=k5b_bound_ms(g, t),
+                 libraries={name: {"ms": events_ms(fn, 20), "device_ms": device_ms(fn, 20)[0]}
+                            for name, fn in libs.items()},
+                 index_put_deterministic_repeats=det_repeats,
+                 index_put_deterministic_equals_k5b=det_equal)
+        r["library_ms"] = r["libraries"]["index_add_"]["ms"]
+        log(f"row_gather_backward [{label}]: bit-equal, two launches equal; kernel "
+            f"{r['ms']:.4f} ms events, {r['loop_ms']:.4f} ms back to back, {dev_ms:.4f} ms "
+            f"device ({per_call} launches per call); plain {r['plain_ms']:.4f} ms; "
+            + "".join(f"{lib} {v['ms']:.4f} ms events, {v['device_ms']:.4f} ms device; "
+                      for lib, v in r["libraries"].items())
+            + f"index_put_ deterministic repeats: {det_repeats}, equals K5b: {det_equal}; "
+            f"bound {r['bound_ms']:.4f} ms (bytes)")
         cases.append(r)
-        del g, g2, table, idx
-    torch.cuda.empty_cache()
-    first = cases[0]
+        del g, idx, libs
+        torch.cuda.empty_cache()
+    first = cases[0]  # 'nearest' C = 51
     return dict({k: first[k] for k in ("ms", "loop_ms", "device_ms", "plain_ms", "library_ms",
-                                       "bound_ms")},
-                max_abs_err=max(c["max_abs_err"] for c in cases), bit_equal=False,
-                libraries={"index_add_int32": {"ms": first["library_ms"],
-                                               "device_ms": first["library_device_ms"]}},
+                                       "bound_ms", "libraries")},
+                max_abs_err=0.0, bit_equal=True, launches_per_call=first["kernels_per_call"],
                 cases=cases)
 
 
@@ -972,7 +973,8 @@ def time_train(card, device, dtype) -> dict:
 
 def profile_high_res_step(run) -> dict:
     """One step on the host clock, then one under torch.profiler: device-busy
-    ms, kernels, and the device ms of the jump floods, K5 and K5b."""
+    ms, kernels, and the device ms of the jump floods, K5 and K5b (all its
+    launches, the zero fill of its table included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -994,7 +996,7 @@ def profile_high_res_step(run) -> dict:
     return {"profile": dict(step_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
                             kernels=len(kernels), jfa_ms=ms("jfa_"),
                             k5_ms=ms("gather_small", "gather_wide", "gather_scalar"),
-                            k5b_ms=ms("scatter_add_rows"))}
+                            k5b_ms=ms("k5b_"))}
 
 
 def train_high_res(device) -> tuple[dict, dict]:
@@ -1178,12 +1180,15 @@ def main() -> int:
         })
         if "trips" in n:
             kernels[-1]["launches_per_call"] = n["trips"]["launches_per_call"]
+        if "launches_per_call" in n:
+            kernels[-1]["launches_per_call"] = n["launches_per_call"]
         if "cases" in n:
             kernels[-1]["cases"] = [{k: c[k] for k in ("label", "channels", "variant", "ms",
                                                        "device_ms", "loop_ms", "plain_ms",
                                                        "bound_ms", "libraries", "max_abs_err",
-                                                       "err_over_abs_terms", "library_ms",
-                                                       "library_device_ms") if k in c}
+                                                       "library_ms", "kernels_per_call",
+                                                       "index_put_deterministic_repeats")
+                                     if k in c}
                                     for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
                     "small_input_label_agreement": small_label_agreement, **checks}))

@@ -20,14 +20,21 @@ launched it.
 **Gradient (K5b).** A float32 table that requires grad, with gradients on,
 goes through :class:`RowGather`: its forward is the gather above, its
 backward ``row_gather_backward``, the scatter-add
-``grad[b, idx[b, p], :] += grad_out[b, p, :]`` into a zeroed [B, T, C]
-table (the JAX package's autodiff of the flat gather). On a CUDA tensor the
-backward launches the hand-written kernel (``csrc/gather.cu``, one f32
-``atomicAdd`` per word, so its sums are not bit-reproducible: they agree
-with the plain version's to rounding); on a CPU tensor it takes
-``row_gather_backward_plain``, an ``index_add_`` over the flattened table.
-Its launch count is ``row_gather_backward.launches``. A CUDA table that
-requires grad never loses its gradient: it takes the Function or raises.
+``grad[b, idx[b, p], :] += grad_out[b, p, :]`` of the gradient rows into a
+[B, T, C] table (the JAX package's autodiff of the flat gather). Its order
+of summation is fixed: ``grad[b, r, c]`` is one chain of f32 adds from +0.0
+over the pixels of row r in ascending pixel order, the order of the JAX
+package's own gradient, so both versions are bit-equal to it and their bits
+depend on the inputs alone. On a CUDA tensor the backward launches the
+hand-written kernel (``csrc/gather.cu``: a counting sort of the pixels by
+row with integer atomics, then one warp per non-empty row that sorts the
+row's pixel ids and sums them in that order, and at C > 32 one block per
+64 channels of each row of more than 256 pixels; no f32 atomics, no host
+synchronisation, scratch from PyTorch's caching allocator); on a CPU tensor
+it takes ``row_gather_backward_plain``, the same order in plain PyTorch.
+Its launch count is ``row_gather_backward.launches``: one per call (the
+call makes five kernel launches, six at C > 32). A CUDA table that requires grad never
+loses its gradient: it takes the Function or raises.
 """
 
 from __future__ import annotations
@@ -152,14 +159,35 @@ def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather_backward_plain(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
-    """Plain PyTorch version of K5b: ``index_add_`` of the gradient rows
-    grad_out [B, ..., C] float32 into a zeroed [B*T, C] table at the clamped
-    flat indices of idx [B, ...] int32 -> [B, T, C]."""
+    """Plain PyTorch version of K5b, in K5b's order of summation:
+    grad_out [B, ..., C] float32, idx [B, ...] int32 -> [B, T, C], where
+    ``grad[b, r, c]`` is the f32 sum, in ascending pixel order, of
+    ``grad_out[b, p, c]`` over the pixels p with ``clamp(idx[b, p], 0, T-1)
+    == r``, one chain of adds from +0.0 (rows no pixel reaches stay +0.0).
+
+    A stable sort of the flat row indices groups each row's pixels in
+    ascending order; step j then adds the j-th pixel of every row that has
+    one, so each element takes its terms one at a time, in order."""
     b, c = idx.shape[0], grad_out.shape[-1]
-    off = torch.arange(b, dtype=torch.int64, device=idx.device).view(b, 1) * t
-    flat = idx.reshape(b, -1).to(torch.int64).clamp(0, t - 1) + off
-    grad = torch.zeros((b * t, c), dtype=grad_out.dtype, device=grad_out.device)
-    grad.index_add_(0, flat.reshape(-1), grad_out.reshape(-1, c))
+    dev = grad_out.device
+    off = torch.arange(b, dtype=torch.int64, device=dev).view(b, 1) * t
+    flat = (idx.reshape(b, -1).to(torch.int64).clamp(0, t - 1) + off).reshape(-1)
+    grad = torch.zeros((b * t, c), dtype=grad_out.dtype, device=dev)
+    if flat.numel() == 0:
+        return grad.reshape(b, t, c)
+    rows, pix = torch.sort(flat, stable=True)
+    counts = torch.bincount(rows, minlength=b * t)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(rows.numel(), device=dev) - starts[rows]  # rank within the row
+    by_pos = torch.sort(pos, stable=True).indices  # slab j: the j-th pixel of every row
+    slab_ends = torch.cumsum(torch.bincount(pos), 0).tolist()
+    rows, pix = rows[by_pos], pix[by_pos]
+    values = grad_out.reshape(-1, c)
+    lo = 0
+    for hi in slab_ends:  # the rows of one slab are distinct: one f32 add per element
+        r = rows[lo:hi]
+        grad[r] = grad[r] + values[pix[lo:hi]]
+        lo = hi
     return grad.reshape(b, t, c)
 
 
@@ -180,13 +208,16 @@ def row_gather_backward(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> to
         raise ValueError(f"row_gather_backward needs rows and 1..65535 channels (T={t}, C={c})")
     if not _on_card("row_gather_backward", grad_out, idx):
         return row_gather_backward_plain(grad_out, idx, t)
+    dev = grad_out.device
     n = idx.numel() // b if b else 0
     _limits("row_gather_backward", b, n)
-    grad = torch.zeros((b, t, c), dtype=torch.float32, device=grad_out.device)
     if n == 0 or b == 0:
-        return grad
-    _call(_kernel("fovealseg_row_gather_backward"), grad_out.device, grad_out.data_ptr(),
-          idx.data_ptr(), grad.data_ptr(), b, n, t, c)
+        return torch.zeros((b, t, c), dtype=torch.float32, device=dev)
+    grad = torch.empty((b, t, c), dtype=torch.float32, device=dev)  # K5b writes every word
+    scratch = torch.empty(_kernel("fovealseg_row_gather_backward_scratch")(b, n, t),
+                          dtype=torch.int32, device=dev)
+    _call(_kernel("fovealseg_row_gather_backward"), dev, grad_out.data_ptr(), idx.data_ptr(),
+          grad.data_ptr(), scratch.data_ptr(), scratch.numel(), b, n, t, c)
     row_gather_backward.launches += 1
     return grad
 
@@ -213,10 +244,12 @@ _ARGTYPES = {
     "fovealseg_row_gather": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                                      ctypes.c_void_p],
-    "fovealseg_row_gather_backward": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
-                                                              ctypes.c_int, ctypes.c_int,
-                                                              ctypes.c_void_p],
+    "fovealseg_row_gather_backward": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                                              ctypes.c_longlong, ctypes.c_int,
+                                                              ctypes.c_int, ctypes.c_void_p],
+    "fovealseg_row_gather_backward_scratch": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
 }
+_RESTYPES = {"fovealseg_row_gather_backward_scratch": ctypes.c_longlong}
 _fns: dict = {}
 
 
@@ -228,6 +261,6 @@ def _kernel(name: str = "fovealseg_row_gather"):
 
         fn = getattr(load("gather"), name)
         fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _fns[name] = fn
     return fn

@@ -444,34 +444,61 @@ def test_edge_target_on_card_matches_host(dev):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("b,t,c,hw", [(8, 6400, 51, (64, 64)), (8, 6400, 1, (640, 640)),
-                                      (2, 4096, 2, (64, 64)), (3, 1000, 3, (33, 70)),
-                                      (1, 5, 300, (9, 9))])
-def test_row_gather_backward_within_tolerance_of_plain(dev, b, t, c, hw):
-    """K5b against ``row_gather_backward_plain``. Its f32 atomics sum in no
-    fixed order, so each element is held within 1e-5 of the sum of its
-    terms' absolute values (a reordered f32 sum of k terms moves by at most
-    ~k * 6e-8 of them); indices outside [0, T) are clamped in both."""
+@pytest.mark.parametrize("b,t,c,hw,offset,kind", [
+    (8, 6400, 51, (64, 64), 0, "random"), (8, 6400, 1, (640, 640), 0, "random"),
+    (2, 4096, 2, (64, 64), 0, "random"), (3, 1000, 3, (33, 70), 0, "random"),
+    (1, 5, 300, (9, 9), 0, "random"),
+    (2, 700, 4, (40, 40), 0, "random"), (3, 50, 5, (7, 13), 0, "random"),  # C = 4, 5
+    (2, 333, 51, (7, 11), 0, "random"),  # ragged N (77 pixels per image)
+    (2, 6400, 51, (80, 80), 1, "random"),  # grad_out and idx at an odd storage offset
+    (3, 100, 3, (50, 50), 1, "random"),
+    (2, 20, 33, (64, 64), 0, "random"),  # T << N: rows of ~200 pixels
+    (2, 10, 51, (64, 64), 0, "random"),  # rows of ~400 pixels: the long-row launch
+    (1, 3, 33, (100, 100), 1, "random"),  # rows of ~3300 pixels, an odd last channel pair
+    (2, 50000, 7, (32, 32), 0, "random"),  # T > N: most rows empty
+    (4, 64 * 64, 51, (64, 64), 0, "seeds"),  # the 'BI' shape, small: T = N, seeds every 4th
+    (2, 96 * 96, 3, (96, 96), 0, "seeds"),
+    (2, 9, 2, (200, 200), 0, "one row"),  # one row takes every pixel: 40000 adds
+])
+def test_row_gather_backward_bit_equal_to_plain(dev, b, t, c, hw, offset, kind):
+    """K5b against ``row_gather_backward_plain``, bit for bit: both sum each
+    row's gradient rows in ascending pixel order. Two launches give the same
+    bits; indices outside [0, T) are clamped in both; gradients span 16
+    orders of magnitude and hold signed zeros."""
     from fovealseg_torch.ops.gather import row_gather_backward, row_gather_backward_plain
 
-    rng = np.random.default_rng(b * t + c)
-    idx = torch.from_numpy(rng.integers(-3, t + 3, (b, *hw)).astype(np.int32))
-    g = torch.from_numpy(rng.normal(size=(b, *hw, c)).astype(np.float32))
+    rng = np.random.default_rng(b * t + c + offset)
+    if kind == "random":
+        idx = rng.integers(-3, t + 3, (b, *hw)).astype(np.int32)
+    elif kind == "seeds":  # each pixel's nearest seed on a lattice of step 4, as K4 gives it
+        h, w = hw
+        y, x = np.meshgrid(np.arange(h) // 4 * 4, np.arange(w) // 4 * 4, indexing="ij")
+        idx = np.broadcast_to((y * w + x).astype(np.int32), (b, h, w)).copy()
+    else:
+        idx = np.full((b, *hw), 4, np.int32)
+    g = rng.normal(size=(b, *hw, c)).astype(np.float32)
+    g *= (10.0 ** rng.integers(-8, 8, g.shape)).astype(np.float32)
+    g[rng.uniform(size=g.shape) < 0.05] = -0.0
+    idx, g = torch.from_numpy(idx), torch.from_numpy(g)
+    idx_d, g_d = _at_offset(idx, offset, dev), _at_offset(g, offset, dev)
     before = row_gather_backward.launches
-    got = row_gather_backward(g.to(dev), idx.to(dev), t)
+    got = row_gather_backward(g_d, idx_d, t)
+    again = row_gather_backward(g_d, idx_d, t)
     torch.cuda.synchronize()
-    assert row_gather_backward.launches == before + 1
+    assert row_gather_backward.launches == before + 2
     ref = row_gather_backward_plain(g, idx, t)
-    scale = row_gather_backward_plain(g.abs(), idx, t)
     assert got.shape == (b, t, c) and got.dtype == torch.float32
-    assert ((got.cpu() - ref).abs() <= 1e-5 * scale + 1e-30).all()
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    assert torch.equal(row_gather_backward_plain(g_d, idx_d, t).cpu().view(torch.int32),
+                       ref.view(torch.int32))  # the plain version on the card too
 
 
 def test_row_gather_gradient_runs_k5b_on_card(dev):
     """A CUDA table that requires grad goes through ``RowGather``: the
     forward launches K5 (bit-equal to the plain gather) and the backward K5b,
-    whose gradient equals the host's autograd one within the stated
-    tolerance; a table that does not require grad takes no Function."""
+    whose gradient is bit-equal to the host's autograd one; a table that does
+    not require grad takes no Function."""
     rng = np.random.default_rng(11)
     table = torch.from_numpy(rng.normal(size=(2, 256, 51)).astype(np.float32))
     idx = torch.from_numpy(rng.integers(0, 256, (2, 64, 64)).astype(np.int32))
@@ -487,7 +514,7 @@ def test_row_gather_gradient_runs_k5b_on_card(dev):
     ref = row_gather(th, idx)
     (ref * w).sum().backward()
     torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=0, atol=0)
-    torch.testing.assert_close(tc.grad.cpu(), th.grad, rtol=1e-5, atol=1e-5)
+    assert torch.equal(tc.grad.cpu().view(torch.int32), th.grad.view(torch.int32))
     assert row_gather(table.to(dev), idx.to(dev)).grad_fn is None
     with pytest.raises(ValueError):  # a float64 table has no kernel, with or without grad
         row_gather(torch.zeros((2, 256, 51), dtype=torch.float64, device=dev,

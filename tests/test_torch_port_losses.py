@@ -7,8 +7,9 @@ the logits within 1e-6 of the gradient's largest element (f32 reductions in
 another order); ``resize_area`` within 1e-6 (the same dense matrices, summed
 in another order); ``compute_losses`` on the JAX forward's own outputs within
 1e-5 relative and its gradients within 1e-5 of their largest element; the
-plain scatter-add of K5b equal to ``jax.grad`` through the flat gather within
-1e-6 (sums of a few f32 terms in another order).
+plain scatter-add of K5b bit-equal to ``jax.grad`` through the flat gather
+(both sum each row in ascending pixel order; ``tests/test_torch_port_k5b.py``
+holds more cases).
 """
 
 import jax
@@ -215,18 +216,22 @@ def test_compute_losses_on_jax_outputs(jax_outputs, name):
 @pytest.mark.parametrize("b,t,c,n", [(2, 16, 51, 300), (3, 50, 1, 1000), (1, 7, 3, 40)])
 def test_k5b_plain_equals_jax_grad_through_the_flat_gather(b, t, c, n):
     """``row_gather_backward_plain`` (and ``row_gather``'s autograd on the
-    CPU) against ``jax.grad`` through ``core/unwarp.py::_gather_rows_flat``."""
+    CPU) against ``jax.grad`` through ``core/unwarp.py::_gather_rows_flat``,
+    bit for bit."""
     rng = np.random.default_rng(b * t + n)
     values = rng.normal(size=(b, t, c)).astype(np.float32)
     idx = rng.integers(0, t, (b, n)).astype(np.int32)
     w = rng.normal(size=(b, n, c)).astype(np.float32)
     ref = jax.grad(lambda v: jnp.sum(jax_gather_rows_flat(v, jnp.asarray(idx)) * w))(
         jnp.asarray(values))
-    _close(row_gather_backward_plain(torch.from_numpy(w), torch.from_numpy(idx), t), ref, 1e-6)
-    _close(row_gather_backward(torch.from_numpy(w), torch.from_numpy(idx), t), ref, 1e-6)
+    ref = np.asarray(ref).view(np.int32)
+    got = row_gather_backward_plain(torch.from_numpy(w), torch.from_numpy(idx), t)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ref)
+    got = row_gather_backward(torch.from_numpy(w), torch.from_numpy(idx), t)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), ref)
     v = torch.from_numpy(values).requires_grad_(True)
     (row_gather(v, torch.from_numpy(idx)) * torch.from_numpy(w)).sum().backward()
-    _close(v.grad, ref, 1e-6)
+    np.testing.assert_array_equal(v.grad.numpy().view(np.int32), ref)
 
 
 def test_k5b_clamps_like_the_forward():
