@@ -53,12 +53,26 @@ Phases (any failure exits non-zero):
         'BI': K4, K5 and K5b); the train CLI (2 epochs x 3 iterations, then
         one more epoch resumed from ``epoch_last``) and the eval CLI on its
         epoch-3 checkpoint;
+     e. the other encoders and saliency nets at full width: SegFormer-B5
+        (``segformer``, fc_dim 1024) and DeepLabV3-ResNet101 (``deeplab``),
+        each with argmax labels and score maps through ``infer`` at b8 and b1
+        in float32 and bfloat16 (CUDA events, host clock, torch.profiler),
+        one b8 bfloat16 batch of the eval CLI, the default train step at b8
+        in float32 and bfloat16 and one ``MODEL.loss_at_high_res`` 'nearest'
+        step; the HRNet flagship with each ResNetZoom saliency net
+        (``resnet18``, ``resnet18_nonsyn``, ``resnet18_stride1``,
+        ``resnet10_nonsyn``) at b8 float32, argmax labels and score maps.
+        Each path's counts are read just after it, and K1, K2, K5 and K5b
+        are held bit-equal to their plain versions on the inputs the path
+        gave them (copied on the way in); the nets at a cut depth on the
+        card against the host (TF32 off, dropout off);
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -102,9 +116,9 @@ def flagship(dtype, device, **overrides):
     from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
     from fovealseg_torch.models.layers import init_weights
 
-    cfg = DeformConfig(task_hw=(80, 80), task_hw_infer=(80, 80), saliency_hw=(80, 80),
-                       gaussian_radius=45, num_class=51, arch_encoder="hrnetv2_nodownsp",
-                       **overrides)
+    cfg = DeformConfig(**{**dict(task_hw=(80, 80), task_hw_infer=(80, 80), saliency_hw=(80, 80),
+                                 gaussian_radius=45, num_class=51,
+                                 arch_encoder="hrnetv2_nodownsp"), **overrides})
     model = DeformSegmentation(cfg, dtype=dtype, device=device)
     return init_weights(model, torch.Generator().manual_seed(SEED))
 
@@ -349,25 +363,26 @@ def check_new_kernels(model, device):
     return res
 
 
-def time_infer(model, device, **kw):
-    """b8 fps and b1 latency of ``infer(**kw)``, CUDA-event timed, and b1 on
-    the host clock. Returns the numbers and the count of calls made."""
+def time_infer(model, device, n8=10, n1=20, **kw):
+    """b8 fps and b1 latency of ``infer(**kw)``, CUDA-event timed (``n8`` and
+    ``n1`` calls after 2 warm-up calls each), and b1 on the host clock
+    (``n1 // 2`` calls). Returns the numbers and the count of calls made."""
     import torch
 
     from fovealseg_torch.tools.profile_gather import events_ms
 
     x8, f8 = frames(8, CANVAS, SEED + 1, device)
     x1, f1 = frames(1, CANVAS, SEED + 2, device)
-    b8_ms = events_ms(lambda: model.infer(x8, f8, **kw), 10, warmup=2)
-    b1_ms = events_ms(lambda: model.infer(x1, f1, **kw), 20, warmup=2)
+    b8_ms = events_ms(lambda: model.infer(x8, f8, **kw), n8, warmup=2)
+    b1_ms = events_ms(lambda: model.infer(x1, f1, **kw), n1, warmup=2)
     host = []
-    for _ in range(10):
+    for _ in range(n1 // 2):
         t = time.perf_counter()
         model.infer(x1, f1, **kw)
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t) * 1e3)
     return dict(b8_ms=b8_ms, b8_fps=8 / (b8_ms / 1e3), b1_ms=b1_ms,
-                b1_host_ms=statistics.median(host)), 2 + 10 + 2 + 20 + 10
+                b1_host_ms=statistics.median(host)), 2 + n8 + 2 + n1 + n1 // 2
 
 
 def argmax_path(model32, model16, device):
@@ -894,7 +909,9 @@ def _flagship_state(device, dtype, cfg):
     from fovealseg_torch.train.optim import create_optimizer, make_stage_schedules
 
     over = {"loss_at_high_res": cfg.MODEL.loss_at_high_res,
-            "rev_deform_interp": cfg.MODEL.rev_deform_interp}
+            "rev_deform_interp": cfg.MODEL.rev_deform_interp,
+            "arch_encoder": cfg.MODEL.arch_encoder, "fc_dim": cfg.MODEL.fc_dim,
+            "saliency_net": cfg.MODEL.saliency_net}
     model = flagship(getattr(torch, dtype), device, **over)
     state = S.init_state(model, create_optimizer(cfg, model), SEED)
     return state, S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg))
@@ -920,16 +937,17 @@ def device_kernels(prof):
             and not e.name.startswith("Optimizer.")]
 
 
-def time_train(card, device, dtype) -> dict:
-    """The flagship's default training step at b8: 2 warm-up steps, 10 timed
-    (host clock, ending in a synchronise), then 2 under torch.profiler for
-    the device-busy time and the kernels per step."""
+def time_train(card, device, dtype, cfg=None, steps=10, profiled=2, label="train b8") -> dict:
+    """The default training step at b8 (the flagship's, or ``cfg``'s model): 2
+    warm-up steps, ``steps`` timed (host clock, ending in a synchronise),
+    then ``profiled`` under torch.profiler for the device-busy time and the
+    kernels per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from fovealseg_torch.train.loop import batch_controls
 
-    cfg = train_cfg()
+    cfg = cfg or train_cfg()
     state, step = _flagship_state(device, dtype, cfg)
     batches = _batches(device, 2, SEED + 23)
     losses = []
@@ -942,30 +960,30 @@ def time_train(card, device, dtype) -> dict:
         run(i)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for i in range(10):
+    for i in range(steps):
         run(i)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3 / 10
+    step_ms = (time.perf_counter() - t) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(2):
+        for i in range(profiled):
             run(i)
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / 2
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / profiled
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"training {dtype}: non-finite loss {losses}")
+        raise AssertionError(f"{label} {dtype}: non-finite loss {losses}")
     top = {}
     for e in kernels:
-        top[e.name[:50]] = top.get(e.name[:50], 0.0) + e.time_range.elapsed_us() / 2e3
+        top[e.name[:50]] = top.get(e.name[:50], 0.0) + e.time_range.elapsed_us() / 1e3 / profiled
     res = dict(samples_per_s=8 / (step_ms / 1e3), step_ms=step_ms, device_busy_ms=busy_ms,
-               idle_share=1.0 - busy_ms / step_ms, kernels_per_step=len(kernels) / 2,
+               idle_share=1.0 - busy_ms / step_ms, kernels_per_step=len(kernels) / profiled,
                losses=losses, top_kernels_ms=dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"train b8 {dtype}: {res['samples_per_s']:.2f} samples/s ({step_ms:.2f} ms/step host "
+    log(f"{label} {dtype}: {res['samples_per_s']:.2f} samples/s ({step_ms:.2f} ms/step host "
         f"clock), device busy {busy_ms:.2f} ms/step, idle share {res['idle_share']:.3f}, "
         f"{res['kernels_per_step']:.0f} kernels/step; losses {losses} on {card}")
-    log(f"train b8 {dtype} top kernels (ms/step): {json.dumps(res['top_kernels_ms'])}")
+    log(f"{label} {dtype} top kernels (ms/step): {json.dumps(res['top_kernels_ms'])}")
     del state, batches
     torch.cuda.empty_cache()
     return res
@@ -1109,6 +1127,336 @@ def train_path(card, device, out_dir):
                                  train_cli=cli_res, phase_3d_s=seconds)
 
 
+# --------------------------------------------------------------- phase 3e
+
+ENCODERS = {"segformer": ("segformer", 1024), "deeplab": ("deeplab", 960)}
+ZOOM_NETS = ("resnet18", "resnet18_nonsyn", "resnet18_stride1", "resnet10_nonsyn")
+# the wrappers that the inverse warp calls (``core/unwarp.py``), by counter name
+UNWARP_KERNELS = {"jfa_class": "nearest_class", "jfa_relpay": "nearest_payload_packed",
+                  "row_gather": "row_gather"}
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """Copies of the inputs of the last call of each kernel wrapper on a path
+    ({counter name: args}), taken on the way in: K1, K2 and K5 where
+    ``core/unwarp.py`` calls them, K5b where ``RowGather.backward`` does."""
+    import torch
+
+    from fovealseg_torch.core import unwarp
+    from fovealseg_torch.ops import gather
+
+    seen = {}
+
+    def recording(name, fn):
+        def call(*args):
+            seen[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            return fn(*args)
+        return call
+
+    saved = {attr: getattr(unwarp, attr) for attr in UNWARP_KERNELS.values()}
+    backward = gather.RowGather.backward
+
+    def copy_backward(ctx, grad_out):
+        seen["row_gather_backward"] = (grad_out.detach().contiguous().clone(),
+                                       ctx.saved_tensors[0].clone(), ctx.rows)
+        return backward(ctx, grad_out)
+
+    try:
+        for name, attr in UNWARP_KERNELS.items():
+            setattr(unwarp, attr, recording(name, saved[attr]))
+        gather.RowGather.backward = staticmethod(copy_backward)
+        yield seen
+    finally:
+        for attr, fn in saved.items():
+            setattr(unwarp, attr, fn)
+        gather.RowGather.backward = staticmethod(backward)
+
+
+def hold_on_path_inputs(label, seen, names):
+    """Each kernel in ``names`` on the inputs it was given on the path,
+    against its plain version on the same inputs: bit-equal. Run after the
+    path's counts are read (these launches are not the path's)."""
+    import torch
+
+    from fovealseg_torch.ops import gather, jfa
+
+    pairs = {"jfa_class": (jfa.nearest_class, jfa.nearest_class_plain),
+             "jfa_relpay": (jfa.nearest_payload_packed, jfa.nearest_payload_packed_plain),
+             "row_gather": (gather.row_gather, gather.row_gather_plain),
+             "row_gather_backward": (gather.row_gather_backward,
+                                     gather.row_gather_backward_plain)}
+    shapes = {}
+    for name in names:
+        if name not in seen:
+            raise AssertionError(f"{label}: {name} was not called on the path")
+        kernel, plain = pairs[name]
+        args = seen[name]
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        bits = torch.int32 if got.element_size() == 4 else got.dtype
+        if got.shape != ref.shape or not torch.equal(got.view(bits), ref.view(bits)):
+            raise AssertionError(f"{name} kernel != plain on {label}'s own inputs")
+        shapes[name] = list(args[0].shape)
+    log(f"{label}: {', '.join(f'{n} {shapes[n]}' for n in names)} bit-equal to the plain "
+        f"versions on the path's own inputs")
+    return shapes
+
+
+def serve_encoder(card, device, name, models):
+    """Phase 3e serving of one encoder: argmax labels and score maps through
+    ``infer`` at b8 and b1 in f32 and bf16 (CUDA events and host clock), then
+    each cell under torch.profiler; counts read just after each path, and
+    the path's K1 (argmax) or K2 and K5 (score map) held on its own inputs."""
+    from fovealseg_torch.tools.profile_serving import profile_cell
+
+    res, counts_by_path = {}, {}
+    for path, kw, kernels in (("argmax", dict(argmax_labels=True), ("jfa_class",)),
+                              ("scoremap", dict(argmax_labels=False),
+                               ("jfa_relpay", "row_gather"))):
+        reset_counts()
+        calls, cells = 0, {}
+        with kernel_inputs() as seen:
+            for dt, model in models.items():
+                tm, n = time_infer(model, device, n8=5, n1=6, **kw)
+                calls += n
+                for b in (8, 1):
+                    prof = profile_cell(model, b, 2, argmax_labels=kw["argmax_labels"])
+                    calls += 3 + 2 * 2
+                    cells[f"b{b} {dt}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                                 "idle_share",
+                                                                 "kernels_per_call")}
+                tm["cells"] = {k: v for k, v in cells.items() if k.endswith(dt)}
+                res[f"{path} {dt}"] = tm
+                log(f"{name} {path} {dt}: b8 {tm['b8_ms']:.3f} ms = {tm['b8_fps']:.1f} fps, b1 "
+                    f"{tm['b1_ms']:.3f} ms (events), {tm['b1_host_ms']:.3f} ms (host clock); "
+                    f"profiled {json.dumps(tm['cells'])} on {card}")
+            # the last call, whose kernel inputs are held below: b8 float32
+            models["float32"].infer(*frames(8, CANVAS, SEED + 32, device), **kw)
+            calls += 1
+        counts = read_counts()
+        check_counts(f"{name} {path}", counts,
+                     {**dict.fromkeys(counts, 0), **dict.fromkeys(kernels, calls)})
+        hold_on_path_inputs(f"{name} {path}", seen, kernels)
+        counts_by_path[f"{name}_{path}"] = counts
+    return res, counts_by_path
+
+
+def eval_encoder(card, device, name, model16, out_dir):
+    """Phase 3e: one b8 bf16 batch of the eval CLI with the encoder (label
+    round trip on), on ``model16``'s weights (``eval_checkpoint``); K1, K2
+    and K5 held on the batch's own inputs."""
+    from fovealseg_torch.cli import eval as cli
+
+    arch, fc_dim = ENCODERS[name]
+    eval_checkpoint(model16, device, f"{out_dir}/ckpt")
+    reset_counts()
+    with kernel_inputs() as seen:
+        result = cli.main(EVAL_FLAGS + ["--torch-ckpt", f"{out_dir}/ckpt", "--torch-epoch", "0",
+                                        "--num-batches", "1"] + EVAL_OPTS
+                          + ["VAL.batch_size", "8", "VAL.y_sampled_reverse", "True",
+                             "MODEL.arch_encoder", arch, "MODEL.fc_dim", str(fc_dim),
+                             "DIR", f"{out_dir}/eval"])
+    counts = read_counts()
+    check_counts(f"{name} eval (1 b8 batch)", counts,
+                 {**dict.fromkeys(counts, 0), "jfa_class": 1, "jfa_relpay": 1, "row_gather": 1})
+    check_result(f"{name} eval b8", result, 1)
+    log(f"{name} eval b8 bf16: {json.dumps({k: v for k, v in result.items() if k != 'per_class_iou'})}"
+        f" on {card}")
+    hold_on_path_inputs(f"{name} eval", seen, ("jfa_class", "jfa_relpay", "row_gather"))
+    return {k: v for k, v in result.items() if k != "per_class_iou"}, counts
+
+
+def train_encoder(card, device, name):
+    """Phase 3e: the default train step at b8 in f32 and bf16 (no kernel of
+    ours runs), then one ``MODEL.loss_at_high_res`` 'nearest' step at b8 f32
+    (K2, K5 and K5b once each, held on the step's own inputs) and one more
+    under torch.profiler."""
+    import torch
+
+    from fovealseg_torch.train.loop import batch_controls
+
+    arch, fc_dim = ENCODERS[name]
+    opts = (*TRAIN_OPTS, "MODEL.arch_encoder", arch, "MODEL.fc_dim", str(fc_dim))
+    reset_counts()
+    res = {dt: time_train(card, device, dt, cfg=train_cfg(*opts), steps=3, profiled=1,
+                          label=f"{name} train b8") for dt in ("float32", "bfloat16")}
+    counts = read_counts()
+    check_counts(f"{name} default train steps", counts, dict.fromkeys(counts, 0))
+    cfg = train_cfg(*opts, "MODEL.loss_at_high_res", "True", "MODEL.rev_deform_interp", "nearest")
+    state, step = _flagship_state(device, "float32", cfg)
+    (batch,) = _batches(device, 1, SEED + 25)
+    torch.cuda.synchronize()
+    reset_counts()
+    with kernel_inputs() as seen:
+        loss = float(step(state, {**batch, **batch_controls(cfg, 1, state.step,
+                                                            state.pool_rng)})["loss"])
+    hr_counts = read_counts()
+    kernels = ("jfa_relpay", "row_gather", "row_gather_backward")
+    check_counts(f"{name} loss_at_high_res 'nearest' (1 b8 step)", hr_counts,
+                 {**dict.fromkeys(hr_counts, 0), **dict.fromkeys(kernels, 1)})
+    if not math.isfinite(loss):
+        raise AssertionError(f"{name} loss_at_high_res: non-finite loss {loss}")
+    hold_on_path_inputs(f"{name} loss_at_high_res step", seen, kernels)
+    del seen
+    prof = profile_high_res_step(lambda: step(state, {**batch, **batch_controls(
+        cfg, 1, state.step, state.pool_rng)}))
+    res["high_res_nearest"] = dict(loss=loss, **prof)
+    log(f"{name} train b8 f32 loss_at_high_res 'nearest': loss {loss:.4f}; one more step "
+        f"profiled: {json.dumps(prof['profile'])} on {card}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return res, {"train": counts, "train_high_res": hr_counts}
+
+
+TINY_MIT = dict(depths=(1, 1, 1, 1), hidden_sizes=(8, 16, 24, 32), strides=(1, 2, 2, 2),
+                patch_sizes=(7, 3, 3, 3), num_heads=(1, 2, 3, 4), sr_ratios=(8, 4, 2, 1),
+                mlp_ratio=4)
+
+
+def check_tiny_encoders_against_host(device) -> dict:
+    """Each new encoder and saliency net at a cut depth (SegFormer 1/1/1/1
+    blocks at widths 8-32, DeepLab one Bottleneck per layer, the ResNetZoom
+    nets whole), the same seeded weights on the card (TF32 off) and on the
+    host, eval and train mode (dropout and drop path off): the output within
+    1e-4 of its largest magnitude (the CPU tests hold the port to the JAX
+    package within 1e-5), and BN's running statistics after the train-mode
+    forward within 1e-4."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.models.deeplab import DeepLabEncoder
+    from fovealseg_torch.models.layers import init_weights
+    from fovealseg_torch.models.saliency import ResNetZoom
+    from fovealseg_torch.models.saliency import ZOOM_NETS as ZOOM
+    from fovealseg_torch.models.segformer import SegFormerEncoder
+
+    nets = {"segformer": (lambda: SegFormerEncoder(TINY_MIT, drop_path_rate=0.0), 3, 16, 2),
+            "deeplab": (lambda: DeepLabEncoder(layers=(1, 1, 1, 1)), 3, 32, 2),
+            **{n: (lambda n=n: ResNetZoom(*ZOOM[n]), 5, 16 if n.endswith("stride1") else 32, 3)
+               for n in ZOOM_NETS}}
+    res = {}
+    prev = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    try:
+        for name, (make, cin, hw, batch) in nets.items():
+            host = _no_dropout(init_weights(make(), torch.Generator().manual_seed(SEED)))
+            x = torch.from_numpy(np.random.default_rng(SEED + 30).normal(
+                size=(batch, cin, hw, hw)).astype(np.float32))
+            for train in (False, True):
+                h, c = copy.deepcopy(host), copy.deepcopy(host).to(device)
+                h.train(train), c.train(train)
+                with torch.no_grad():
+                    ref, got = h(x), c(x.to(device))
+                ref = ref[0] if isinstance(ref, list) else ref
+                got = (got[0] if isinstance(got, list) else got).cpu()
+                err = float((got - ref).abs().max() / ref.abs().max())
+                stat = max([float((c.state_dict()[k].cpu() - v).abs().max()
+                                  / v.abs().max().clamp(min=1e-30))
+                            for k, v in h.state_dict().items() if "running_" in k] or [0.0])
+                res[f"{name} {'train' if train else 'eval'}"] = dict(rel_err=err, bn_stat_err=stat)
+                if not (err <= 1e-4 and stat <= 1e-4):
+                    raise AssertionError(f"tiny {name} on the card differs from the host: "
+                                         f"{err:.3g} (output), {stat:.3g} (BN statistics)")
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = prev
+    log(f"tiny encoders and saliency nets card vs host (TF32 off): {json.dumps(res)}")
+    return res
+
+
+def serve_zoom(card, device, name):
+    """Phase 3e: the flagship HRNet with the ResNetZoom saliency ``name`` at
+    b8 float32: argmax labels and score maps through ``infer`` (events), one
+    argmax cell under torch.profiler, K1 / K2 and K5 held on the path's own
+    inputs."""
+    import torch
+
+    from fovealseg_torch.tools.profile_gather import events_ms
+    from fovealseg_torch.tools.profile_serving import profile_cell
+
+    model = flagship(torch.float32, device, saliency_net=name)
+    x, f = frames(8, CANVAS, SEED + 31, device)
+    res = {"saliency_params": sum(p.numel() for p in model.localization.parameters())}
+    counts_by_path = {}
+    for path, am, kernels in (("argmax", True, ("jfa_class",)),
+                              ("scoremap", False, ("jfa_relpay", "row_gather"))):
+        reset_counts()
+        with kernel_inputs() as seen:
+            ms = events_ms(lambda: model.infer(x, f, argmax_labels=am), 5, warmup=2)
+            calls = 7
+            if am:
+                prof = profile_cell(model, 8, 2, argmax_labels=True)
+                calls += 7
+                res["argmax_b8_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                                 "idle_share", "kernels_per_call")}
+        counts = read_counts()
+        check_counts(f"HRNet + {name} {path}", counts,
+                     {**dict.fromkeys(counts, 0), **dict.fromkeys(kernels, calls)})
+        hold_on_path_inputs(f"HRNet + {name} {path}", seen, kernels)
+        res[f"{path}_b8_ms"] = ms
+        res[f"{path}_b8_fps"] = 8 / (ms / 1e3)
+        counts_by_path[f"zoom_{name}_{path}"] = counts
+    out = model.infer(x, f, argmax_labels=True)
+    labels = out["pred_label"]
+    if labels.shape != (8, CANVAS, CANVAS) or not 0 <= int(labels.min()) <= int(labels.max()) < 51:
+        raise AssertionError(f"HRNet + {name}: labels {tuple(labels.shape)} out of range")
+    if not torch.isfinite(out["xs"]).all():
+        raise AssertionError(f"HRNet + {name}: non-finite saliency")
+    log(f"HRNet + {name} b8 f32: argmax {res['argmax_b8_fps']:.1f} fps, score map "
+        f"{res['scoremap_b8_fps']:.1f} fps (events); argmax profiled "
+        f"{json.dumps(res['argmax_b8_profile'])}; saliency net {res['saliency_params']} params "
+        f"on {card}")
+    del model, out
+    torch.cuda.empty_cache()
+    return res, counts_by_path
+
+
+def encoders_path(card, device, out_dir):
+    """Phase 3e."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res, counts_by_path = {}, {}
+    for name, (arch, fc_dim) in ENCODERS.items():
+        t = time.perf_counter()
+        models = {dt: flagship(getattr(torch, dt), device, arch_encoder=arch, fc_dim=fc_dim)
+                  for dt in ("float32", "bfloat16")}
+        params = sum(p.numel() for p in models["float32"].parameters())
+        enc_params = sum(p.numel() for p in models["float32"].encoder.parameters())
+        log(f"== {name}: {params / 1e6:.2f} M parameters ({enc_params / 1e6:.2f} M in the "
+            f"encoder), built in {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        serving, c = serve_encoder(card, device, name, models)
+        counts_by_path.update(c)
+        log(f"{name} serving took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        evaluation, c = eval_encoder(card, device, name, models["bfloat16"],
+                                     f"{out_dir}/{name}")
+        counts_by_path[f"{name}_eval"] = c
+        del models
+        torch.cuda.empty_cache()
+        log(f"{name} eval took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        training, c = train_encoder(card, device, name)
+        counts_by_path.update({f"{name}_{k}": v for k, v in c.items()})
+        log(f"{name} training took {time.perf_counter() - t:.1f} s")
+        res[name] = dict(params=params, encoder_params=enc_params, serving=serving,
+                         eval=evaluation, train=training)
+    t = time.perf_counter()
+    for name in ZOOM_NETS:
+        res[f"zoom_{name}"], c = serve_zoom(card, device, name)
+        counts_by_path.update(c)
+    log(f"the ResNetZoom nets took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    res["tiny_against_host"] = check_tiny_encoders_against_host(device)
+    log(f"the tiny card-vs-host checks took {time.perf_counter() - t:.1f} s")
+    res["phase_3e_s"] = time.perf_counter() - t_phase
+    log(f"phase 3e took {res['phase_3e_s']:.1f} s on {card}")
+    return res, counts_by_path
+
+
 def main() -> int:
     import torch
 
@@ -1148,6 +1496,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         train_numbers, train_counts, training = train_path(card, device, out_dir)
     numbers.update(train_numbers)
+    log("== phase 3e: the SegFormer-B5 and DeepLabV3-R101 encoders, the ResNetZoom saliency nets")
+    with tempfile.TemporaryDirectory() as out_dir:
+        encoders, encoder_counts = encoders_path(card, device, out_dir)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -1166,7 +1517,8 @@ def main() -> int:
         n = numbers[name]
         by_path = {"argmax": argmax_counts[name], "scoremap": scoremap_counts[name],
                    "eval": eval_counts[name], "eval_b2_configs": eval_other_counts[name],
-                   "train": train_counts[name]}
+                   "train": train_counts[name],
+                   **{path: c[name] for path, c in encoder_counts.items()}}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -1191,7 +1543,8 @@ def main() -> int:
                                      if k in c}
                                     for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
-                    "small_input_label_agreement": small_label_agreement, **checks}))
+                    "encoders": encoders, "small_input_label_agreement": small_label_agreement,
+                    **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,16 @@ mask from an explicit ``torch.Generator``, installed for a forward by
 :func:`dropout_generator` (the counterpart of ``rngs={'dropout': rng}``).
 
 Init mirrors the JAX package: Kaiming-normal (fan_in) conv and linear
-weights, zero biases, BN scale 1 and bias 1e-4.
+weights (xavier-uniform for a ``Linear`` built with ``init="xavier_uniform"``,
+SegFormer's ``Dense``), zero biases, BN scale 1 and bias 1e-4, LayerNorm and
+the batch-statistics norm scale 1 and bias 0.
+
+For SegFormer and the ResNetZoom saliency nets: ``LayerNorm`` is flax's
+(statistics in f32, the variance as E[x^2] - E[x]^2, the result cast to the
+compute dtype), ``gelu`` is flax's tanh approximation, ``DropPath`` keeps or
+drops whole samples from the dropout generator, and ``BatchStatsNorm`` is the
+JAX package's ``_BatchStatsNorm`` (the ``_nonsyn`` nets' BN: the current
+batch's statistics in train and eval, no running statistics).
 """
 
 from __future__ import annotations
@@ -50,8 +59,9 @@ class Conv2d(_CastCache, nn.Conv2d):
     """torch ``nn.Conv2d`` (symmetric padding) computing in ``dtype``."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-                 padding: int = 0, bias: bool = True, dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout, kernel_size, stride, padding, bias=bias)
+                 padding: int = 0, bias: bool = True, dtype: torch.dtype = torch.float32,
+                 dilation: int = 1, groups: int = 1):
+        super().__init__(cin, cout, kernel_size, stride, padding, dilation, groups, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x):
@@ -125,10 +135,90 @@ class Dropout(nn.Module):
         return x * mask / keep
 
 
+class DropPath(nn.Module):
+    """Stochastic depth of the JAX package's ``SegformerLayer``: in train mode
+    keep each sample of ``[B, ...]`` with probability 1 - p (one draw per
+    sample from the dropout generator) and divide it by 1 - p."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        gen = _DropoutRng.generator
+        if gen is None:
+            raise RuntimeError("train-mode drop path needs a torch.Generator: run the forward "
+                               "with DeformSegmentation(..., train=True, rng=generator)")
+        keep = 1.0 - self.p
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(keep, generator=gen)
+        return x * mask / keep
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` over the last axis: mean and E[x^2] in f32, the
+    variance E[x^2] - mean^2 clipped at 0, then ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias`` in f32, cast to ``dtype``."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__(channels, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        xf = at_least_f32(x)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min(xf.square().mean(-1, keepdim=True) - mean.square(), 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.compute_dtype)
+
+
+class BatchStatsNorm(nn.Module):
+    """The JAX package's ``_BatchStatsNorm`` (torch ``BatchNorm2d`` with
+    ``track_running_stats=False``): normalise each channel of an NCHW map with
+    the current batch's mean and variance in train and eval alike, the
+    variance as E[x^2] - mean^2 in f32; learned scale and bias, no running
+    statistics. So a served output depends on which frames share its
+    batch, as in the reference."""
+
+    eps = 1e-5
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        xf = at_least_f32(x)
+        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
+        var = xf.square().mean(dim=(0, 2, 3), keepdim=True) - mean.square()
+        w, b = self.weight.view(1, -1, 1, 1), self.bias.view(1, -1, 1, 1)
+        return ((xf - mean) * torch.rsqrt(var + self.eps) * w + b).to(self.compute_dtype)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to at least f32 (flax's ``promote_types(dtype, float32)``:
+    f64 stays f64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def gelu(x):
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 class Linear(_CastCache, nn.Linear):
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+    """``nn.Linear`` computing in ``dtype``; ``init`` names its weight init
+    (``"kaiming_normal"``, the JAX package's ``linear``, or
+    ``"xavier_uniform"``, SegFormer's ``Dense``)."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+                 init: str = "kaiming_normal"):
         super().__init__(cin, cout)
         self.compute_dtype = dtype
+        self.init = init
 
     def forward(self, x):
         return F.linear(x.to(self.compute_dtype), self._cast_param("weight", self.weight),
@@ -136,16 +226,18 @@ class Linear(_CastCache, nn.Linear):
 
 
 def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
-           use_bias: bool = True, dtype: torch.dtype = torch.float32) -> Conv2d:
-    return Conv2d(cin, cout, kernel_size, stride, padding, use_bias, dtype)
+           use_bias: bool = True, dtype: torch.dtype = torch.float32, dilation: int = 1,
+           groups: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size, stride, padding, use_bias, dtype, dilation, groups)
 
 
 def batch_norm(channels: int, dtype: torch.dtype = torch.float32) -> BatchNorm2d:
     return BatchNorm2d(channels, dtype)
 
 
-def linear(cin: int, cout: int, dtype: torch.dtype = torch.float32) -> Linear:
-    return Linear(cin, cout, dtype)
+def linear(cin: int, cout: int, dtype: torch.dtype = torch.float32,
+           init: str = "kaiming_normal") -> Linear:
+    return Linear(cin, cout, dtype, init)
 
 
 def relu6(x):
@@ -156,12 +248,20 @@ def relu6(x):
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded init mirroring the JAX package's initializers."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if getattr(m, "init", None) == "xavier_uniform":
+            fan_out, fan_in = m.weight.shape
+            w = torch.rand(m.weight.shape, generator=generator, dtype=torch.float32)
+            m.weight.copy_((2.0 * w - 1.0) * math.sqrt(6.0 / (fan_in + fan_out)))
+            m.bias.zero_()
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             w = torch.randn(m.weight.shape, generator=generator, dtype=torch.float32)
             m.weight.copy_(w * math.sqrt(2.0 / fan_in))
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, BatchStatsNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.weight.fill_(1.0)
             m.bias.fill_(1e-4)

@@ -34,7 +34,8 @@ def test_port_sources_exist():
     for mod in (("ops", "jfa.py"), ("ops", "gather.py"), ("core", "unwarp.py"),
                 ("core", "warp.py"), ("core", "grid.py"), ("core", "metrics.py"),
                 ("core", "edges.py"), ("data", "synthetic.py"), ("native", "spatial.py"),
-                ("native", "interp2d.py"), ("utils", "visuals.py"), ("cli", "eval.py")):
+                ("native", "interp2d.py"), ("utils", "visuals.py"), ("cli", "eval.py"),
+                ("models", "segformer.py"), ("models", "deeplab.py"), ("models", "saliency.py")):
         assert os.path.join("fovealseg_torch", *mod) in names
     for src in ("jfa.cu", "gather.cu"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
