@@ -66,6 +66,23 @@ Phases (any failure exits non-zero):
         are held bit-equal to their plain versions on the inputs the path
         gave them (copied on the way in); the nets at a cut depth on the
         card against the host (TF32 off, dropout off);
+     f. data parallelism (``fovealseg_torch/parallel``), its ranks started by
+        ``parallel/launch.py``: one NCCL rank under DDP against the
+        single-process step from the same weights and batch, b8 float32,
+        deterministic cuDNN, default and ``loss_at_high_res`` 'nearest'
+        (loss, parameters and BN statistics bit-equal; the DDP 'nearest'
+        step's counts read in the rank just after it, K2, K5 and K5b held on
+        its own inputs), then both default steps timed in turn (the
+        median of 12 each on the host clock, samples/s at it, device busy);
+        two gloo ranks on the one
+        card, the flagship at a global b8 with cross-rank BN: after one step
+        every parameter and BN statistic bit-equal between the ranks; the
+        tiny two-rank step on the card against the same step on the host,
+        held to a float64 host yardstick (``float64_nets``); the serving CLI
+        with ``--mesh 1`` (NCCL) and ``--mesh 2`` (gloo, both ranks on the
+        card) against one process: labels bit-equal, K1 launched once per
+        rank per micro-batch (counted in the rank processes, which start at
+        0), K1 held on the single process's inputs;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -796,10 +813,29 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp(min=1e-30))
 
 
+def float64_nets(model):
+    """A copy of ``model`` whose sub-networks hold f64 weights and compute in
+    f64, the geometry between them (saliency to grid, warp, inverse warp,
+    losses) in f32 as before: the float64 yardstick of the checks that hold
+    the card to the host. The tiny nets' train-mode BN amplifies the last
+    bits of their inputs, so the card's f32 distance from this yardstick is
+    held to about twice the host's f32 distance, not to a fixed bound."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(model).double()
+    for sub in m.modules():
+        if hasattr(sub, "compute_dtype"):
+            sub.compute_dtype = torch.float64
+    return m
+
+
 def _host_and_card_step(device, opts):
     """One train step of the tiny pair (same weights, dropout off) on the
-    card and on the host on one synthetic b2 batch: (host, card) as
-    (model, mets, grads, params before) each."""
+    host, on the card and on the host with float64 sub-networks
+    (:func:`float64_nets`) on one synthetic b2 batch: (host, card, host64)
+    as (model, mets, grads, params before) each."""
     import numpy as np
     import torch
 
@@ -813,7 +849,7 @@ def _host_and_card_step(device, opts):
     host, card = _tiny_pair(device, **over)
     batch = make_batch(np.random.default_rng(SEED + 22), 2, canvas=64)
     runs = []
-    for model in (host, card):
+    for model in (host, card, float64_nets(host)):
         _no_dropout(model)
         dev = next(model.parameters()).device
         before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -827,6 +863,19 @@ def _host_and_card_step(device, opts):
     return runs
 
 
+def _update_of(model, before, sub) -> dict:
+    """{'params' | 'stats': the f64 host copy of ``sub``'s update}."""
+    import torch
+
+    out = {"params": [], "stats": []}
+    for k, v in model.state_dict().items():
+        if k.startswith(sub + ".") and "num_batches" not in k:
+            d = (v.detach().cpu().double() - before[k].cpu().double()).reshape(-1)
+            out["stats" if "running_" in k else "params"].append(d)
+    return {kind: torch.cat(ds) if ds else torch.zeros(0, dtype=torch.float64)
+            for kind, ds in out.items()}
+
+
 def check_small_train_against_host(device) -> dict:
     """One train step of the tiny pair, card (f32, TF32 off) against host,
     dropout off on both: the loss within 1e-4; each group's gradient within
@@ -836,12 +885,15 @@ def check_small_train_against_host(device) -> dict:
     their update in norm; every updated parameter within 2.01 learning rates
     of the host's (Adam's first step moves every element by ~lr whatever its
     gradient's size, so an element whose gradient is at the noise level
-    moves +lr on one device and -lr on the other; the update's norm says
-    nothing and is only printed: 25 compress weights read 0.1% and 19% in
-    two runs). Then one ``MODEL.loss_at_high_res`` step in
-    'nearest' and in 'BI': the saliency nets' gradient (it reaches them only
-    through the row gather's backward) must be non-zero and within 5% of
-    the host's, and K5b must have run."""
+    moves +lr on one device and -lr on the other). Each group's Adam update
+    is held to the float64 yardstick (:func:`float64_nets`): its distance in
+    norm from the host's float64 update at most twice the host f32 update's
+    distance, a bound that must itself lie below the float64 update's norm
+    (so a card that left a group unchanged fails).
+    Then one ``MODEL.loss_at_high_res`` step in 'nearest' and in 'BI': the
+    saliency nets' gradient (it reaches them only through the row gather's
+    backward) must be non-zero and within 5% of the host's, and K5b must
+    have run."""
     import torch
 
     from fovealseg_torch.ops import gather
@@ -850,30 +902,25 @@ def check_small_train_against_host(device) -> dict:
     prev = torch.backends.cudnn.conv.fp32_precision
     torch.backends.cudnn.conv.fp32_precision = "ieee"
     try:
-        (h_model, h_mets, h_grads, h_before), (c_model, c_mets, c_grads, c_before) = \
-            _host_and_card_step(device, [])
+        (h_model, h_mets, h_grads, h_before), (c_model, c_mets, c_grads, c_before), \
+            (f_model, _, _, f_before) = _host_and_card_step(device, [])
         res = {"loss_host": h_mets["loss"], "loss_card": c_mets["loss"],
                "loss_rel_err": abs(c_mets["loss"] - h_mets["loss"]) / abs(h_mets["loss"])}
         res["grad_rel_err"] = {g: _rel(c_grads[g], h_grads[g]) for g in h_grads}
-        h_sd, c_sd = h_model.state_dict(), c_model.state_dict()
-        stat_num = stat_den = 0.0
-        upd_err, max_dev = {}, 0.0
-        for name, sub, _, mult in GROUPS:
-            num = den = 0.0
-            for k in h_sd:
-                if not k.startswith(sub + ".") or "num_batches" in k:
-                    continue
-                dh = (h_sd[k] - h_before[k]).double()
-                dc = (c_sd[k].cpu() - c_before[k].cpu()).double()
-                if "running_" in k:
-                    stat_num += float(((dc - dh) ** 2).sum())
-                    stat_den += float((dh ** 2).sum())
-                else:
-                    num += float(((dc - dh) ** 2).sum())
-                    den += float((dh ** 2).sum())
-                    max_dev = max(max_dev, float((dc - dh).abs().max()))
-            upd_err[name] = (num / max(den, 1e-300)) ** 0.5
+        stat_num = stat_den = max_dev = 0.0
+        upd_err, yard = {}, {}
+        for name, sub, _, _ in GROUPS:
+            dh, dc = _update_of(h_model, h_before, sub), _update_of(c_model, c_before, sub)
+            d64 = _update_of(f_model, f_before, sub)["params"]
+            stat_num += float(((dc["stats"] - dh["stats"]) ** 2).sum())
+            stat_den += float((dh["stats"] ** 2).sum())
+            upd_err[name] = _rel(dc["params"], dh["params"])
+            max_dev = max(max_dev, float((dc["params"] - dh["params"]).abs().max()))
+            card64, host64 = float((dc["params"] - d64).norm()), float((dh["params"] - d64).norm())
+            yard[name] = dict(card=card64, host=host64, bound=2 * host64,
+                              norm=float(d64.norm()))
         res["update_rel_err"] = upd_err
+        res["update_from_float64"] = yard
         res["bn_stat_rel_err"] = (stat_num / max(stat_den, 1e-300)) ** 0.5
         lr = 0.1 * train_cfg(*TINY_OPTS).TRAIN.lr_mult_encoder
         res["max_param_dev_over_lr"] = max_dev / lr
@@ -881,9 +928,18 @@ def check_small_train_against_host(device) -> dict:
         if (res["loss_rel_err"] > 1e-4 or max(res["grad_rel_err"].values()) > 0.05
                 or res["bn_stat_rel_err"] > 1e-3 or res["max_param_dev_over_lr"] > 2.01):
             raise AssertionError("the tiny train step on the card disagrees with the host's")
+        loose = {g: y for g, y in yard.items() if y["bound"] >= y["norm"]}
+        if loose:
+            raise AssertionError("the float64 yardstick cannot tell an unchanged group from "
+                                 "the update (twice the host's distance >= the update's "
+                                 f"norm): {loose}")
+        far = {g: y for g, y in yard.items() if y["card"] > y["bound"]}
+        if far:
+            raise AssertionError("the card's Adam update is farther from the float64 step than "
+                                 f"twice the host's distance: {far}")
         for interp in ("nearest", "BI"):
             before = gather.row_gather_backward.launches
-            (_, h_mets, h_grads, _), (_, c_mets, c_grads, _) = _host_and_card_step(
+            (_, h_mets, h_grads, _), (_, c_mets, c_grads, _), _ = _host_and_card_step(
                 device, ["MODEL.loss_at_high_res", "True", "MODEL.rev_deform_interp", interp])
             launched = gather.row_gather_backward.launches - before
             sal = torch.cat([c_grads["saliency"], c_grads["compress"]])
@@ -1457,6 +1513,358 @@ def encoders_path(card, device, out_dir):
     return res, counts_by_path
 
 
+# --------------------------------------------------------------- phase 3f
+
+DP_HIGH_RES = ("MODEL.loss_at_high_res", "True", "MODEL.rev_deform_interp", "nearest")
+# timed steps of each kind in (d), taken in turn
+DP_TIMED_STEPS = 12
+
+
+def _bits(t):
+    import torch
+
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
+def _mismatch(a: dict, b: dict) -> dict:
+    """Elements of two state dicts that differ bit for bit, and the largest
+    absolute difference."""
+    n = 0
+    worst = 0.0
+    for k, t in a.items():
+        u = b[k]
+        n += int((_bits(t) != _bits(u)).sum())
+        if t.is_floating_point():
+            worst = max(worst, float((t.double() - u.double()).abs().max()))
+    return {"mismatched_elements": n, "max_abs_diff": worst}
+
+
+def _interleaved_step_times(cfg, runs: dict, batches, n) -> dict:
+    """The steps of ``runs`` ({name: (state, step)}) taken in turn, one of
+    each, ``n`` times after one warm-up each, every step on the host clock
+    ending in a synchronise, so that a drift of the shared host's load
+    falls on all of them alike. Per name: the median ms per step, its
+    quartiles, samples/s at the median; then one step each under
+    torch.profiler: device-busy ms, idle share against the median, kernels
+    per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovealseg_torch.train.loop import batch_controls
+
+    def run(name, i):
+        state, step = runs[name]
+        return step(state, {**batches[i % len(batches)],
+                            **batch_controls(cfg, 1, state.step, state.pool_rng)})
+
+    ms = {name: [] for name in runs}
+    for i in range(n + 1):
+        for name in runs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run(name, i)
+            torch.cuda.synchronize()
+            if i:
+                ms[name].append((time.perf_counter() - t) * 1e3)
+    b = batches[0]["img_data"].shape[0]
+    out = {}
+    for name, ts in ms.items():
+        q1, med, q3 = statistics.quantiles(ts, n=4)
+        # device activity only: the host events of ~13,000 kernels cost seconds to collect
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(name, 0)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        out[name] = dict(step_ms_median=med, step_ms_q1=q1, step_ms_q3=q3,
+                         samples_per_s=b / (med / 1e3), steps=n, device_busy_ms=busy,
+                         idle_share=1.0 - busy / med, kernels_per_step=len(kernels))
+    return out
+
+
+def dp_world_one(rank):
+    """Phase 3f (a) and (d), in one NCCL rank: the flagship at b8 f32 with
+    deterministic cuDNN, one default step and one ``loss_at_high_res``
+    'nearest' step each through the single-process ``make_train_step`` and
+    with the one-rank group (DDP), from
+    the same weights and batch (dropout on: rank 0 keeps the stream); the
+    loss, the updated parameters and the BN statistics compared bit for bit.
+    The DP 'nearest' step's counts are read just after it, and its K2, K5
+    and K5b held on their own inputs. Then both default steps timed in turn
+    (:func:`_interleaved_step_times`, nothing else of the smoke running on
+    the host)."""
+    import os
+    import warnings
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.loop import batch_controls
+    from fovealseg_torch.train.optim import make_stage_schedules
+
+    device = rank.device
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {"counts": {}}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for label, opts, kernels in (("default", (), ()),
+                                     ("nearest", DP_HIGH_RES,
+                                      ("jfa_relpay", "row_gather", "row_gather_backward"))):
+            cfg = train_cfg(*TRAIN_OPTS, *opts)
+            batches = _batches(device, 2, SEED + 40)
+            states, steps, mets = {}, {}, {}
+            for name, group in (("plain", None), ("dp", dist.group.WORLD)):
+                states[name], _ = _flagship_state(device, "float32", cfg)
+                steps[name] = S.make_train_step(S.LossConfig.from_cfg(cfg),
+                                                make_stage_schedules(cfg), group=group)
+                b = {**batches[0], **batch_controls(cfg, 1, 0, states[name].pool_rng)}
+                torch.cuda.synchronize()
+                reset_counts()
+                with kernel_inputs() as seen:
+                    m = steps[name](states[name], b)
+                counts = read_counts()
+                mets[name] = {k: float(v) for k, v in m.items()}
+                if name == "dp":
+                    check_counts(f"world-1 DDP step '{label}' (1 b8 step)", counts,
+                                 {**dict.fromkeys(counts, 0), **dict.fromkeys(kernels, 1)})
+                    out["counts"][label] = counts
+                    if kernels:
+                        hold_on_path_inputs(f"world-1 DDP '{label}' step", seen, kernels)
+                del seen
+            r = _mismatch({k: v.detach() for k, v in states["plain"].model.state_dict().items()},
+                          {k: v.detach() for k, v in states["dp"].model.state_dict().items()})
+            r.update(loss_plain=mets["plain"]["loss"], loss_dp=mets["dp"]["loss"],
+                     metrics_equal=mets["plain"] == mets["dp"])
+            log(f"world-1 DDP (NCCL) vs single-process step, '{label}' b8 f32: {json.dumps(r)} "
+                f"({time.perf_counter() - t0:.1f} s into the rank)")
+            out[label] = r
+            if label == "default":
+                out["times"] = _interleaved_step_times(
+                    cfg, {name: (states[name], steps[name]) for name in states}, batches,
+                    DP_TIMED_STEPS)
+                log(f"timed at {time.perf_counter() - t0:.1f} s into the rank")
+            del states, steps, batches
+            torch.cuda.empty_cache()
+    out["nondeterministic_ops"] = sorted({str(w.message)[:160] for w in caught
+                                          if "deterministic" in str(w.message)})
+    return out
+
+
+def _tiny_dp_step(rank, batch, float64: bool) -> dict:
+    """One data-parallel step of the tiny pair (cross-rank BN on, dropout
+    off) on this rank's block of the global ``batch``; f64 sub-networks with
+    ``float64``. Returns the loss and, on rank 0, each group's gradient."""
+    import torch
+    import torch.distributed as dist
+
+    from fovealseg_torch.models.layers import convert_sync_bn
+    from fovealseg_torch.parallel.mesh import replicate_state, shard_batch
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import create_optimizer, make_stage_schedules
+
+    cfg = train_cfg(*TINY_OPTS)
+    host, _ = _tiny_pair("cpu")
+    model = _no_dropout(float64_nets(host) if float64 else host).to(rank.device)
+    convert_sync_bn(model, dist.group.WORLD)
+    state = replicate_state(S.init_state(model, create_optimizer(cfg, model), SEED))
+    step = S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg),
+                             group=dist.group.WORLD)
+    blk = shard_batch({k: torch.from_numpy(v).to(rank.device) for k, v in batch.items()},
+                      rank.rank, rank.world_size)
+    loss = float(step(state, blk)["loss"])
+    grads = _group_grads(model) if rank.rank == 0 else None
+    return {"loss": loss, "grads": grads}
+
+
+def dp_tiny_host(rank, batch):
+    """Phase 3f (b)'s host reference: the tiny two-rank gloo step in f32 and
+    with f64 sub-networks."""
+    import torch
+
+    torch.set_num_threads(2)
+    return {"f32": _tiny_dp_step(rank, batch, False), "f64": _tiny_dp_step(rank, batch, True)}
+
+
+def dp_two_ranks_one_card(rank, batch):
+    """Phase 3f (b), two gloo ranks on the one card: the flagship at a global
+    b8 (4 per rank) in f32 with cross-rank BN, one step; every parameter and
+    BN statistic compared with rank 0's bit for bit. Then the tiny two-rank
+    step (TF32 off) for the float64 yardstick."""
+    import torch
+    import torch.distributed as dist
+
+    from fovealseg_torch.models.layers import convert_sync_bn
+    from fovealseg_torch.parallel.mesh import broadcast_tensors, replicate_state, shard_batch
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.loop import batch_controls
+    from fovealseg_torch.train.optim import make_stage_schedules
+
+    cfg = train_cfg()
+    state, _ = _flagship_state(rank.device, "float32", cfg)
+    synced = convert_sync_bn(state.model, dist.group.WORLD)
+    replicate_state(state)
+    step = S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg),
+                             group=dist.group.WORLD)
+    (full,) = _batches(rank.device, 1, SEED + 41)
+    blk = shard_batch({**full, **batch_controls(cfg, 1, 0, state.pool_rng)}, rank.rank,
+                      rank.world_size)
+    loss = float(step(state, blk)["loss"])
+    mine = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    first = {k: v.clone() for k, v in mine.items()}
+    broadcast_tensors(list(first.values()))
+    res = {"loss": loss, "bn_layers_synced": synced, "tensors": len(mine),
+           "elements": sum(t.numel() for t in mine.values()), **_mismatch(mine, first)}
+    del state, step, full, blk, mine, first
+    torch.cuda.empty_cache()
+    prev = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    try:
+        res["tiny"] = _tiny_dp_step(rank, batch, False)
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = prev
+    return res
+
+
+def dp_serving(card, device, out_dir) -> tuple[dict, dict]:
+    """Phase 3f (c): the serving CLI at b8 f32, 2 batches, in one process
+    (K1 held on its own inputs), with ``--mesh 1`` (NCCL) and with ``--mesh 2
+    --gpus 0,0 --backend gloo`` (two ranks on the one card), the three runs
+    at once and beside (b) (no time is read here): labels bit-equal to the single
+    process's, and K1 launched once per rank per micro-batch (counted in
+    the rank processes)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from fovealseg_torch.cli import infer as cli
+
+    common = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--batch", "8", "--num-batches",
+              "2", "MODEL.gaussian_radius", "45", "TRAIN.saliency_input_size", "(80,80)",
+              "TRAIN.task_input_size", "(80,80)", "TPU.compute_dtype", "float32"]
+
+    def serve(name, extra):
+        t = time.perf_counter()
+        out = cli.main(common[:4] + extra + ["--out", f"{out_dir}/{name}"] + common[4:])
+        return out, time.perf_counter() - t
+
+    runs = {}
+    with ThreadPoolExecutor(2) as pool:
+        meshes = {name: pool.submit(serve, name, extra) for name, extra in (
+            ("mesh1", ["--mesh", "1"]),
+            ("mesh2", ["--mesh", "2", "--gpus", "0,0", "--backend", "gloo"]))}
+        with kernel_inputs() as seen:
+            runs["single"], wall = serve("single", [])
+            runs["single"]["wall_s"] = wall
+        hold_on_path_inputs("single-process serving (the mesh runs' reference)", seen,
+                            ("jfa_class",))
+        for name, fut in meshes.items():
+            ranks, wall = fut.result()
+            runs[name] = dict(ranks[0], wall_s=wall,
+                              launches_by_rank=[r["launches"] for r in ranks])
+            if [r["launches"]["jfa_class"] for r in ranks] != [2] * len(ranks):
+                raise AssertionError(f"--{name}: K1 launches per rank "
+                                     f"{[r['launches'] for r in ranks]}, expected 2 each")
+    names = sorted(n for n in os.listdir(f"{out_dir}/single") if n.endswith(".npy"))
+    if len(names) != 16:
+        raise AssertionError(f"single-process serving wrote {len(names)} masks, expected 16")
+    for name in ("mesh1", "mesh2"):
+        if sorted(n for n in os.listdir(f"{out_dir}/{name}") if n.endswith(".npy")) != names:
+            raise AssertionError(f"--{name} wrote other mask files")
+        for n in names:
+            if not np.array_equal(np.load(f"{out_dir}/{name}/{n}"),
+                                  np.load(f"{out_dir}/single/{n}")):
+                raise AssertionError(f"--{name} labels of {n} != the single process's")
+    log(f"mesh serving: --mesh 1 (NCCL) and --mesh 2 (gloo, two ranks on one card) labels "
+        f"bit-equal to one process's on 16 b8 frames (2 batches: no throughput is read "
+        f"here); run at once: " + "; ".join(f"{k} {v['wall_s']:.1f} s with start-up"
+                                            for k, v in runs.items()) + f" on {card}")
+    counts = {"dp_serve_mesh1": {"jfa_class": sum(r["jfa_class"]
+                                                  for r in runs["mesh1"]["launches_by_rank"])},
+              "dp_serve_mesh2": {"jfa_class": sum(r["jfa_class"]
+                                                  for r in runs["mesh2"]["launches_by_rank"])}}
+    return runs, counts
+
+
+def parallel_path(card, device, out_dir):
+    """Phase 3f."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.data.synthetic import make_batch
+    from fovealseg_torch.parallel.launch import run_workers
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tiny_batch = make_batch(np.random.default_rng(SEED + 42), 8, canvas=64)
+    t = time.perf_counter()
+    (one,) = run_workers(1, dp_world_one, device="cuda", timeout=300, echo=True)
+    log(f"3f (a) took {time.perf_counter() - t:.1f} s")
+    # the host reference and (c) run beside (b): none of them reads a time, (a) does
+    with ThreadPoolExecutor(2) as pool:
+        host = pool.submit(run_workers, 2, dp_tiny_host, tiny_batch, device="cpu", timeout=300)
+        serve = pool.submit(dp_serving, card, device, out_dir)
+        t = time.perf_counter()
+        two = run_workers(2, dp_two_ranks_one_card, tiny_batch, device=[0, 0], backend="gloo",
+                          timeout=300, echo=True)
+        log(f"3f (b) took {time.perf_counter() - t:.1f} s")
+        serving, counts = serve.result()
+        log(f"3f (c), beside (b), ended {time.perf_counter() - t:.1f} s after (b) began")
+        ref = host.result()
+        log(f"the host reference of (b) ended {time.perf_counter() - t:.1f} s after (b) began")
+    res = {"world_one": {k: one[k] for k in ("default", "nearest", "times",
+                                             "nondeterministic_ops")}, "serving": serving}
+    plain, dp = one["times"]["plain"], one["times"]["dp"]
+    iqr = (plain["step_ms_q3"] - plain["step_ms_q1"]) / plain["step_ms_median"]
+    log(f"world-1 DDP step vs plain step, b8 f32, taken in turn: {json.dumps(one['times'])}; "
+        f"DDP/plain median {dp['step_ms_median'] / plain['step_ms_median']:.3f}, the plain "
+        f"step's interquartile range {iqr:.3f} of its median, on {card}")
+    if one["nondeterministic_ops"]:
+        log(f"ops that warned under deterministic algorithms: {one['nondeterministic_ops']}")
+    inv = {k: two[0][k] for k in ("loss", "bn_layers_synced", "tensors", "elements",
+                                  "mismatched_elements", "max_abs_diff")}
+    inv["mismatched_elements_rank1"] = two[1]["mismatched_elements"]
+    log(f"two gloo ranks on one card, flagship global b8 with cross-rank BN: {json.dumps(inv)}")
+    if inv["mismatched_elements_rank1"] or not inv["bn_layers_synced"]:
+        raise AssertionError("after one data-parallel step the two ranks' parameters or BN "
+                             "statistics differ")
+    card32, h32, h64 = two[0]["tiny"], ref[0]["f32"], ref[0]["f64"]
+    c64, g64 = abs(card32["loss"] - h64["loss"]), abs(h32["loss"] - h64["loss"])
+    tiny = {"loss_card": card32["loss"], "loss_host": h32["loss"], "loss_host64": h64["loss"],
+            "loss": dict(card=c64, host=g64, bound=2 * g64 + 1e-6 * abs(h64["loss"])),
+            "groups": {}}
+    for g in h64["grads"]:
+        f = h64["grads"][g].double()
+        c64 = float((card32["grads"][g].double() - f).norm())
+        g64 = float((h32["grads"][g].double() - f).norm())
+        tiny["groups"][g] = dict(card=c64, host=g64, bound=2 * g64 + 1e-3 * float(f.norm()),
+                                 norm=float(f.norm()))
+    log(f"tiny two-rank gloo step, card vs host against the float64 yardstick: {json.dumps(tiny)}")
+    far = {g: v for g, v in [("loss", tiny["loss"]), *tiny["groups"].items()]
+           if v["card"] > v["bound"]}
+    if far:
+        raise AssertionError("the tiny data-parallel step on the card is farther from the "
+                             f"float64 step than twice the host's distance: {far}")
+    res["two_ranks_one_card"] = dict(inv, tiny=tiny)
+    counts["dp_train_high_res"] = one["counts"]["nearest"]
+    for label in ("default", "nearest"):
+        r = one[label]
+        if r["mismatched_elements"] or r["loss_plain"] != r["loss_dp"] or not r["metrics_equal"]:
+            raise AssertionError(f"world-1 DDP '{label}' step != the single-process step: {r}")
+    res["phase_3f_s"] = time.perf_counter() - t_phase
+    log(f"phase 3f took {res['phase_3f_s']:.1f} s on {card}")
+    return res, counts
+
+
 def main() -> int:
     import torch
 
@@ -1499,6 +1907,9 @@ def main() -> int:
     log("== phase 3e: the SegFormer-B5 and DeepLabV3-R101 encoders, the ResNetZoom saliency nets")
     with tempfile.TemporaryDirectory() as out_dir:
         encoders, encoder_counts = encoders_path(card, device, out_dir)
+    log("== phase 3f: data parallelism")
+    with tempfile.TemporaryDirectory() as out_dir:
+        parallel, parallel_counts = parallel_path(card, device, out_dir)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -1518,7 +1929,8 @@ def main() -> int:
         by_path = {"argmax": argmax_counts[name], "scoremap": scoremap_counts[name],
                    "eval": eval_counts[name], "eval_b2_configs": eval_other_counts[name],
                    "train": train_counts[name],
-                   **{path: c[name] for path, c in encoder_counts.items()}}
+                   **{path: c[name] for path, c in encoder_counts.items()},
+                   **{path: c.get(name, 0) for path, c in parallel_counts.items()}}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -1543,8 +1955,8 @@ def main() -> int:
                                      if k in c}
                                     for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
-                    "encoders": encoders, "small_input_label_agreement": small_label_agreement,
-                    **checks}))
+                    "encoders": encoders, "parallel": parallel,
+                    "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

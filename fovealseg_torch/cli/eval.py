@@ -158,8 +158,8 @@ def refuse_unported(cfg, data: str) -> None:
             "ported (ROADMAP, 'Not to port'); unset them")
     if data != "synthetic":
         raise NotImplementedError(
-            f"--data {data!r}: the LVIS, Cityscapes and ODGT readers come with the remaining "
-            "CLIs (ROADMAP queue 1, item 7); use --data synthetic")
+            f"--data {data!r}: the LVIS, Cityscapes and ODGT readers are not ported yet "
+            "(ROADMAP queue 1, 'the dataset readers'); use --data synthetic")
 
 
 def load_weights(module, cfg, torch_ckpt, torch_epoch, log) -> None:
@@ -180,7 +180,7 @@ def load_weights(module, cfg, torch_ckpt, torch_epoch, log) -> None:
         return
     if cfg.TRAIN.start_epoch > 0 and os.path.isdir(cfg.DIR):
         # the training checkpoint of that epoch in DIR (train/checkpoint.py)
-        ckpt.load_torch_checkpoint(module, cfg.DIR, cfg.TRAIN.start_epoch)
+        ckpt.load_torch_checkpoint(module, cfg.DIR, cfg.TRAIN.start_epoch, strict=True)
         log.info("loaded the training checkpoint of epoch %d from %s", cfg.TRAIN.start_epoch,
                  cfg.DIR)
         return

@@ -9,9 +9,19 @@ and each batch's masks are drained one batch behind, so the host prepares
 and enqueues batch k+1 while the card computes batch k. Prints a one-line
 JSON throughput summary.
 
+``--mesh N`` (the JAX CLI's batch-split serving) runs N rank processes
+(``parallel/launch.py``; one per card over NCCL, ``--device cpu`` over gloo,
+``--gpus`` names the cards, ``--backend gloo`` lets ranks share one): each
+rank serves its contiguous block of every micro-batch, and rank 0 gathers
+the labels, writes the outputs and prints the summary. ``--batch`` and the
+micro-batch must divide by N. A ``_nonsyn`` saliency net (batch statistics
+at serving) is refused with ``--mesh``: each rank would normalise over its
+own block. ``--spatial`` is not ported.
+
 Usage:
   python -m fovealseg_torch.cli.infer --cfg fovealseg_torch/configs/deform.yaml \
-      [--images DIR --gaze gaze.json | --num-batches N] [--out DIR] [--device cuda]
+      [--images DIR --gaze gaze.json | --num-batches N] [--out DIR] [--device cuda] \
+      [--mesh N [--gpus 0-3] [--backend nccl|gloo]]
   gaze.json: {"<image filename>": [fy, fx], ...} in [0,1]^2 (default center).
 """
 
@@ -78,14 +88,23 @@ def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def serve(module, batches, device, on_masks=None):
+def serve(module, batches, device, on_masks=None, group=None):
     """Run ``batches`` through ``module.infer(argmax_labels=True)``.
 
     Masks are drained one batch behind (``on_masks(names, uint8 [B,H,W])``).
     The first batch pays the warm-up and is left out of the throughput
-    window. Returns (frames in the window, seconds)."""
+    window. With a process ``group`` each rank serves its contiguous block of
+    every batch and rank 0 gathers the masks (``on_masks`` runs there).
+    Returns (frames in the window, seconds)."""
+    from fovealseg_torch.parallel.mesh import shard_batch
+    from fovealseg_torch.parallel.multihost import rank_and_world
+
+    rank, world = rank_and_world(group) if group is not None else (0, 1)
     n_frames, pending, t0 = 0, None, None
     for names, imgs, gazes in batches:
+        if group is not None:
+            blk = shard_batch({"x": imgs, "f": gazes}, rank, world)
+            imgs, gazes = blk["x"], blk["f"]
         label = module.infer(_stage(imgs, device), _stage(gazes, device),
                              argmax_labels=True)["pred_label"]
         timed = t0 is not None
@@ -94,19 +113,34 @@ def serve(module, batches, device, on_masks=None):
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
         if pending is not None:
-            n_frames += _drain(pending, on_masks)
+            n_frames += _drain(pending, on_masks, group)
         pending = (names, label, timed)
     if pending is not None:
-        n_frames += _drain(pending, on_masks)
+        n_frames += _drain(pending, on_masks, group)
     return n_frames, max(time.perf_counter() - (t0 or time.perf_counter()), 1e-9)
 
 
-def _drain(pending, on_masks) -> int:
+def _drain(pending, on_masks, group=None) -> int:
     names, label, timed = pending
-    masks = label.to(torch.uint8).cpu().numpy()  # waits for this batch only
+    masks = label.to(torch.uint8)
+    if group is not None:
+        masks = _gather_blocks(masks, group)
+    masks = masks.cpu().numpy()  # waits for this batch only
     if on_masks is not None:
         on_masks(names, masks)
     return len(names) if timed else 0
+
+
+def _gather_blocks(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's block of ``t``, concatenated in rank order (gloo gathers
+    host copies: it moves no CUDA tensors but in an all-reduce)."""
+    import torch.distributed as dist
+
+    if dist.get_backend(group) == "gloo":
+        t = t.cpu()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def _writer(out_dir, png):
@@ -143,8 +177,8 @@ def build_model(cfg, device, torch_ckpt=None, torch_epoch="last"):
     return module
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser(description="fovealseg serving on a CUDA device")
+def _parse(argv):
+    parser = argparse.ArgumentParser(description="fovealseg serving on CUDA devices")
     parser.add_argument("--cfg", required=True)
     parser.add_argument("--images", default=None, help="folder of frames")
     parser.add_argument("--gaze", default=None, help="json: name -> [fy, fx]")
@@ -154,6 +188,12 @@ def main(argv=None):
     parser.add_argument("--microbatch", type=int, default=0,
                         help="split each batch into chunks of this size (0 = min(batch, 8); "
                              "--microbatch equal to --batch runs whole batches)")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="split each batch over N rank processes (0 = one process)")
+    parser.add_argument("--gpus", default=None,
+                        help="the ranks' cards with --mesh, reference grammar (default 0..N-1)")
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="the ranks' backend (default: NCCL on cards, gloo on the CPU)")
     parser.add_argument("--canvas", type=int, default=640)
     parser.add_argument("--num-batches", type=int, default=4,
                         help="synthetic batches when --images is absent")
@@ -164,19 +204,67 @@ def main(argv=None):
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
 
-    from fovealseg_torch import resolve_device
     from fovealseg_torch.configs import get_default_cfg
 
-    device = resolve_device(args.device)
     cfg = get_default_cfg()
     cfg.merge_from_file(args.cfg)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    module = build_model(cfg, device, args.torch_ckpt, args.torch_epoch)
-
     micro = args.microbatch or min(args.batch, 8)
     if micro > args.batch or args.batch % micro:
         micro = args.batch
+    if args.mesh:
+        if args.batch % args.mesh:
+            raise SystemExit("--batch must be divisible by --mesh")
+        if micro % args.mesh:
+            raise SystemExit(f"the micro-batch ({micro}) must be divisible by --mesh")
+        if cfg.MODEL.saliency_net.endswith("_nonsyn"):
+            raise NotImplementedError(
+                f"--mesh with MODEL.saliency_net {cfg.MODEL.saliency_net!r}: its BN uses the "
+                "batch's statistics at serving, which each rank would take over its own block; "
+                "not ported (ROADMAP queue 1, 'parallelism')")
+    return args, cfg, micro
+
+
+def main(argv=None):
+    """Serve and return the summary, with the kernel launches of this serve
+    (``launches``); with ``--mesh N``, each rank's summary in rank order."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args, _, _ = _parse(argv)
+    if args.mesh:
+        from fovealseg_torch.parallel.launch import run_workers
+
+        if args.device == "cpu":
+            device = "cpu"
+        else:
+            from fovealseg_torch.cli.train import parse_devices
+
+            device = parse_devices(args.gpus) if args.gpus else "cuda"
+        return run_workers(args.mesh, _rank_main, argv, device=device, backend=args.backend,
+                           echo=True, threads=1 if device == "cpu" else None)
+    return _serve(argv, None)
+
+
+def _rank_main(rank, argv):
+    return _serve(argv, rank)
+
+
+def _serve(argv, rank):
+    from fovealseg_torch import resolve_device
+    from fovealseg_torch.ops import gather, jfa
+
+    args, cfg, micro = _parse(argv)
+    kernels = {"jfa_class": jfa.nearest_class, "row_gather": gather.row_gather}
+    before = {name: fn.launches for name, fn in kernels.items()}
+    if rank is None:
+        device, group, main_rank = resolve_device(args.device), None, True
+    else:
+        import torch.distributed as dist
+
+        device, group, main_rank = rank.device, dist.group.WORLD, rank.rank == 0
+    module = build_model(cfg, device, args.torch_ckpt, args.torch_epoch)
     if args.images:
         gaze_map = {}
         if args.gaze:
@@ -187,21 +275,26 @@ def main(argv=None):
         batches = synthetic_batches(args.num_batches, args.canvas, args.batch)
     if micro != args.batch:
         batches = _microbatches(batches, micro)
-    on_masks = _writer(args.out, args.png) if args.out else None
+    on_masks = _writer(args.out, args.png) if args.out and main_rank else None
 
-    n_frames, dt = serve(module, batches, device, on_masks)
-    print(json.dumps({
+    n_frames, dt = serve(module, batches, device, on_masks, group)
+    summary = {
         "frames": n_frames,
         "seconds": dt,
         "fps": n_frames / dt,
         "canvas": args.canvas,
         "batch": args.batch,
         "microbatch": micro,
+        "mesh": args.mesh,
         "task": list(module.config.task_hw_infer),
         "dtype": str(module.dtype).replace("torch.", ""),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "note": "wall clock after the first batch, host IO included",
-    }))
+    }
+    if main_rank:
+        print(json.dumps(summary), flush=True)
+    summary["launches"] = {name: fn.launches - before[name] for name, fn in kernels.items()}
+    return summary
 
 
 if __name__ == "__main__":

@@ -1,21 +1,28 @@
-"""Training CLI of the port (counterpart of ``cli/train.py``), on one card.
+"""Training CLI of the port (counterpart of ``cli/train.py``).
 
-Usage (the JAX CLI's flags and dotlist grammar, plus ``--device`` and
-``--canvas``):
+Usage (the JAX CLI's flags and dotlist grammar, plus ``--device``,
+``--backend`` and ``--canvas``):
 
   python -m fovealseg_torch.cli.train --cfg fovealseg_torch/configs/deform.yaml \
-      --data synthetic [--device cuda] [--canvas 640] \
+      --data synthetic [--gpus 0-3] [--device cuda] [--canvas 640] \
       TRAIN.task_input_size '(80,80)' TRAIN.saliency_input_size '(80,80)' \
       MODEL.gaussian_radius 45 DIR ./ckpt/lvis_50cls
 
-One card only: ``--gpus`` naming more than one device, ``TPU.mesh_shape``
-with two non-zero dimensions, ``TPU.quantize`` and ``TPU.conv_pack`` raise,
+``--gpus`` naming N > 1 devices trains data-parallel (``parallel/``): N
+rank processes started by ``parallel/launch.py``, one per card over NCCL
+(``--device cpu``: N CPU processes over gloo; ``--backend gloo`` on cards).
+The global batch is ``TRAIN.batch_size_per_gpu x N``; ``TRAIN.auto_batch
+auto10`` counts N devices, as the JAX CLI does. Cross-rank BN follows
+``TPU.sync_bn`` when N > 1. Rank 0 logs, writes the history and the
+checkpoints; every rank loads them. ``TPU.mesh_shape`` with two non-zero
+dimensions (the 2-D mesh), ``TPU.quantize`` and ``TPU.conv_pack`` raise,
 and so does ``--data`` other than ``synthetic``. The synthetic stream is made
 on the device (``data/synthetic.py::make_batch_device``): epoch ``e`` draws
-from a generator seeded with ``TRAIN.seed + e``, so a resumed run sees the
-batches an uninterrupted one would; the eval stream is a fixed held-out set
-(``TRAIN.seed + 10000``, 8 batches). Weights come from ``MODEL.weights_*``
-when set, else a seeded init; ``TRAIN.start_epoch`` and
+the global batch from a generator seeded with ``TRAIN.seed + e`` and each
+rank keeps its contiguous block (``parallel/mesh.py::shard_batch``), so a resumed run sees the batches an uninterrupted one would and
+N ranks see the batches of one process at the global batch; the eval stream
+is a fixed held-out set (``TRAIN.seed + 10000``, 8 batches). Weights come
+from ``MODEL.weights_*`` when set, else a seeded init; ``TRAIN.start_epoch`` and
 ``TRAIN.auto_resume`` resume from the port's checkpoint in ``DIR``
 (``train/checkpoint.py``). ``MODEL.gt_gradient`` with
 ``gt_gradient_intrinsic_only`` runs the forward and the metrics with no
@@ -31,23 +38,19 @@ import re
 
 
 def refuse_unported(cfg, args) -> None:
-    """Raise for every option this single-card CLI does not run."""
-    if args.gpus is not None and len(parse_devices(args.gpus)) > 1:
-        raise NotImplementedError(
-            f"--gpus {args.gpus!r}: data parallelism over several cards is not ported yet "
-            "(ROADMAP queue 1, item 5); name one device")
+    """Raise for every option this CLI does not run."""
     mesh = tuple(cfg.TPU.mesh_shape)
     if len(mesh) == 2 and all(s > 0 for s in mesh):
         raise NotImplementedError("TPU.mesh_shape with two non-zero dimensions (the 2-D mesh) "
-                                  "is not ported (ROADMAP queue 1, item 5)")
+                                  "is not ported (ROADMAP queue 1, 'the 2-D mesh')")
     if cfg.TPU.quantize or cfg.TPU.conv_pack:
         raise NotImplementedError(
             "TPU.quantize and TPU.conv_pack are tuned to the TPU's matrix unit and are not "
             "ported (ROADMAP, 'Not to port'); unset them")
     if args.data != "synthetic":
         raise NotImplementedError(
-            f"--data {args.data!r}: the LVIS and Cityscapes readers come with the remaining "
-            "CLIs (ROADMAP queue 1, item 7); use --data synthetic")
+            f"--data {args.data!r}: the LVIS and Cityscapes readers are not ported yet "
+            "(ROADMAP queue 1, 'the dataset readers'); use --data synthetic")
 
 
 def parse_devices(spec: str) -> list[int]:
@@ -93,61 +96,110 @@ def _resume(cfg, state, log) -> None:
 
 
 def main(argv=None):
-    """Train and return the final ``TrainState``."""
-    parser = argparse.ArgumentParser(description="fovealseg training on one CUDA device")
+    """Train. One process: return the final ``TrainState``. Several ranks
+    (``--gpus`` naming N > 1 devices): start them, and return each rank's
+    summary (``step``, ``topology``) in rank order."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args, cfg = _parse(argv)
+    devices = parse_devices(args.gpus) if args.gpus else []
+    if len(devices) > 1:
+        from fovealseg_torch.parallel.launch import run_workers
+
+        n = len(devices)
+        cpu = args.device == "cpu"
+        return run_workers(n, _rank_main, argv, device="cpu" if cpu else devices,
+                           backend=args.backend, timeout=args.timeout, echo=True,
+                           threads=max(1, (os.cpu_count() or 1) // n) if cpu else None)
+    return _train(args, cfg, None)
+
+
+def _rank_main(rank, argv):
+    """One rank of a data-parallel run."""
+    from fovealseg_torch.parallel.multihost import describe_topology
+
+    args, cfg = _parse(argv)
+    state = _train(args, cfg, rank)
+    return {"step": state.step, "topology": describe_topology(rank.device)}
+
+
+def _parse(argv):
+    parser = argparse.ArgumentParser(description="fovealseg training on CUDA devices")
     parser.add_argument("--cfg", required=True, metavar="FILE")
-    parser.add_argument("--gpus", default=None, help="one device of the reference grammar")
+    parser.add_argument("--gpus", default=None,
+                        help="devices of the reference grammar ('0-3', '0,2'); N > 1 trains "
+                             "data-parallel over N ranks")
     parser.add_argument("--data", default="synthetic")
     parser.add_argument("--dataset", default="lvis", choices=["lvis", "cityscapes"])
     parser.add_argument("--image-root", default=None)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="the ranks' backend (default: NCCL on cards, gloo on the CPU)")
+    parser.add_argument("--timeout", type=float, default=24 * 3600.0,
+                        help="deadline of a data-parallel run, in seconds")
     parser.add_argument("--canvas", type=int, default=640, help="synthetic canvas size")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
 
+    from fovealseg_torch.configs import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file(args.cfg)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    refuse_unported(cfg, args)
+    return args, cfg
+
+
+def _train(args, cfg, rank):
+    """Train on one process (``rank`` None) or as one rank of several."""
     import torch
+    import torch.distributed as dist
 
     from fovealseg_torch import resolve_device
-    from fovealseg_torch.configs import audit_dead_keys, get_default_cfg
+    from fovealseg_torch.configs import audit_dead_keys
     from fovealseg_torch.data.loader import prefetch
     from fovealseg_torch.data.synthetic import make_batch_device
     from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
-    from fovealseg_torch.models.layers import init_weights
+    from fovealseg_torch.models.layers import convert_sync_bn, init_weights
+    from fovealseg_torch.parallel.mesh import replicate_state, shard_batch
     from fovealseg_torch.train import step as S
     from fovealseg_torch.train.checkpoint import load_torch_weight_files
     from fovealseg_torch.train.loop import fit
     from fovealseg_torch.train.optim import create_optimizer, make_stage_schedules
     from fovealseg_torch.utils.summary import summarize
 
-    device = resolve_device(args.device)
-    cfg = get_default_cfg()
-    cfg.merge_from_file(args.cfg)
-    if args.opts:
-        cfg.merge_from_list(args.opts)
-    refuse_unported(cfg, args)
-    if device.type == "cuda" and args.gpus:
-        device = torch.device("cuda", parse_devices(args.gpus)[0])
+    if rank is None:
+        device, r, world, group = resolve_device(args.device), 0, 1, None
+        if device.type == "cuda" and args.gpus:
+            device = torch.device("cuda", parse_devices(args.gpus)[0])
+    else:
+        device, r, world, group = rank.device, rank.rank, rank.world_size, dist.group.WORLD
     if cfg.TRAIN.auto_batch == "auto10":
-        # ~0.65M pixels per device; epoch_iters = one pass of the list file
+        # ~0.65M pixels per device; epoch_iters = one pass of the list file over the devices
         cfg.TRAIN.batch_size_per_gpu = max(1, int((1e6 * 0.65) // (cfg.DATASET.imgSizes[0] ** 2)))
-        cfg.TRAIN.num_gpus = 1
+        cfg.TRAIN.num_gpus = world
         if os.path.isfile(cfg.DATASET.list_train):
             with open(cfg.DATASET.list_train) as fh:
                 num_data = sum(1 for _ in fh)
-            cfg.TRAIN.epoch_iters = max(1, num_data // cfg.TRAIN.batch_size_per_gpu)
+            cfg.TRAIN.epoch_iters = max(1, num_data // (world * cfg.TRAIN.batch_size_per_gpu))
     cfg.TRAIN.max_iters = cfg.TRAIN.epoch_iters * cfg.TRAIN.num_epoch
 
     os.makedirs(cfg.DIR, exist_ok=True)
     log = logging.getLogger("fovealseg")
-    log.setLevel(logging.INFO)
+    log.setLevel(logging.INFO if r == 0 else logging.WARNING)
     fmt = logging.Formatter("[%(asctime)s %(levelname)s %(filename)s:%(lineno)d] %(message)s")
-    handlers = [logging.StreamHandler(), logging.FileHandler(os.path.join(cfg.DIR, "train.log"))]
+    handlers = [logging.StreamHandler()]
+    if r == 0:
+        handlers.append(logging.FileHandler(os.path.join(cfg.DIR, "train.log")))
     for h in handlers:
         h.setFormatter(fmt)
         log.addHandler(h)
     try:
         log.info("config:\n%s", cfg.dump())
-        audit_dead_keys(cfg, log)
+        if r == 0:
+            audit_dead_keys(cfg, log)
         # convs: TF32 in f32 on the card, set explicitly (the grid solver and
         # the resizes run full f32 matmuls whatever this says)
         torch.backends.cudnn.conv.fp32_precision = "tf32"
@@ -162,26 +214,33 @@ def main(argv=None):
         if any(files.values()):
             log.info("loaded torch weights: %s", load_torch_weight_files(model, files))
         log.info("model summary:\n%s", summarize(model))
+        if world > 1 and cfg.TPU.sync_bn:
+            log.info("cross-rank BN on %d layers", convert_sync_bn(model, group))
         lcfg = S.LossConfig.from_cfg(cfg)
         state = S.init_state(model, create_optimizer(cfg, model), cfg.TRAIN.seed,
                              fix_bn=cfg.TRAIN.fix_bn)
         _resume(cfg, state, log)
+        if group is not None:
+            replicate_state(state, group)
+            log.info("data parallel: %d ranks over %s, global batch %d", world,
+                     dist.get_backend(group), cfg.TRAIN.batch_size_per_gpu * world)
 
         if cfg.MODEL.gt_gradient and cfg.MODEL.gt_gradient_intrinsic_only:
-            train_step = S.make_forward_only_step(lcfg, fix_bn=cfg.TRAIN.fix_bn)
+            train_step = S.make_forward_only_step(lcfg, fix_bn=cfg.TRAIN.fix_bn, group=group)
             log.info("gt_gradient_intrinsic_only: optimizer updates disabled")
         else:
             train_step = S.make_train_step(lcfg, make_stage_schedules(cfg),
-                                           fix_bn=cfg.TRAIN.fix_bn)
-        eval_step = S.make_eval_step(lcfg)
-        batch_size = cfg.TRAIN.batch_size_per_gpu
+                                           fix_bn=cfg.TRAIN.fix_bn, group=group)
+        eval_step = S.make_eval_step(lcfg, group=group)
+        global_batch = cfg.TRAIN.batch_size_per_gpu * world
         num_fg = cfg.DATASET.num_class - 1
 
         def stream(seed: int, n: int):
             gen = torch.Generator(device=device)
             gen.manual_seed(seed)
             for _ in range(n):
-                yield make_batch_device(gen, batch_size, args.canvas, num_fg)
+                yield shard_batch(make_batch_device(gen, global_batch, args.canvas, num_fg), r,
+                                  world)
 
         def train_loader(epoch):
             return prefetch(stream(cfg.TRAIN.seed + epoch, cfg.TRAIN.epoch_iters))

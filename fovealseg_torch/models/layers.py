@@ -11,7 +11,10 @@ BN follows the JAX package's flax BatchNorm: eps 1e-5; in eval mode it
 normalises with the running statistics; in train mode with the batch's
 (biased) statistics, and it updates the running ones in place with momentum
 0.1 (flax's 0.9) and the **biased** batch variance, as flax does
-(``nn.BatchNorm2d`` would fold in the unbiased one). ``Dropout`` draws its
+(``nn.BatchNorm2d`` would fold in the unbiased one). Cross-rank BN (the JAX
+package's ``axis_name``, ``TPU.sync_bn``) is a process group set on each
+``BatchNorm2d`` by :func:`convert_sync_bn`; it applies in train mode with
+more than one rank. ``Dropout`` draws its
 mask from an explicit ``torch.Generator``, installed for a forward by
 :func:`dropout_generator` (the counterpart of ``rngs={'dropout': rng}``).
 
@@ -34,6 +37,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -74,16 +78,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     """flax-semantics BN (eps 1e-5, torch momentum 0.1 == flax 0.9);
     normalizes in f32 and returns ``dtype``. In train mode the running
     variance takes the biased batch variance, and ``num_batches_tracked``
-    stays 0, as the JAX package's exports write it."""
+    stays 0, as the JAX package's exports write it.
+
+    ``process_group`` (set by :func:`convert_sync_bn`): in train mode over
+    more than one rank, the statistics are flax's under ``axis_name``: the
+    per-channel mean and E[x^2] of this rank's block in f32, averaged over
+    the ranks in one all-reduce, var = max(E[x^2] - mean^2, 0), and
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the running
+    statistics take the global mean and biased variance. The gradient flows
+    through the all-reduce (:class:`_RankMean`)."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
+        self.process_group = None
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps).to(self.compute_dtype)
+        if self.process_group is not None and dist.get_world_size(self.process_group) > 1:
+            return self._synced(x)
         # PyTorch updates a running variance with the unbiased vu = vb * n / (n - 1):
         # upd = (1 - m) * old + m * vu. The biased update (1 - m) * old + m * vb is
         # upd * (1 - 1/n) + (1 - m) * old / n. The op updates a copy (autograd
@@ -95,6 +110,52 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1.0 - m) / n).add_(upd, alpha=1.0 - 1.0 / n)
         return out.to(self.compute_dtype)
+
+    def _synced(self, x):
+        xf = at_least_f32(x)
+        local = torch.stack([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
+        mean, mean2 = _RankMean.apply(local, self.process_group).unbind()
+        var = torch.clamp_min(mean2 - mean.square(), 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return y.to(self.compute_dtype)
+
+
+class _RankMean(torch.autograd.Function):
+    """``pmean`` over a process group: the all-reduced sum over the world
+    size. Its backward is the same (JAX transposes ``pmean`` into
+    ``psum / n``), so each rank's input gets the gradient of every rank's
+    loss through the shared statistics."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.detach().clone()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / dist.get_world_size(ctx.group), None
+
+
+def convert_sync_bn(model: nn.Module, group) -> int:
+    """Cross-rank BN over ``group`` on every ``BatchNorm2d`` of ``model``
+    (None turns it off). The modules stay, so the state-dict keys do;
+    ``BatchStatsNorm`` (the ``_nonsyn`` nets) is never synced, as in the
+    JAX package. Returns the number of layers set."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
+            n += 1
+    return n
 
 
 class _DropoutRng:

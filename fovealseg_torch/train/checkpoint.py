@@ -12,22 +12,31 @@
   ``{saliency,compress,encoder,decoder}_epoch_N.pth`` into a model.
 * :func:`load_torch_weight_files` loads per-network files named one by one,
   the ``MODEL.weights_{encoder,decoder,net_saliency,net_compress}`` surface.
+  Both load as the JAX package's import does (the reference's
+  ``strict=False``): a key the model has no entry for, or whose shape
+  differs, is skipped and logged (a ResNetZoom file's ``layer4.*`` and
+  ``fc.*``), an entry the file lacks keeps its value.
 * :func:`save_checkpoint` / :func:`load_checkpoint` are the port's training
   checkpoint: the same 4-file set (what the JAX package's
   ``load_torch_checkpoint`` reads) plus ``train_state_epoch_{N}.pth`` with the
   optimizer state, the step count, the dropout generator's state and the
   pretrain-pool draw's state. Each numbered epoch also refreshes the
   ``_last`` copies; an off-cadence epoch writes only those. Writes are
-  synchronous, the ``_last`` files after the numbered ones.
+  synchronous, the ``_last`` files after the numbered ones. Under data
+  parallelism rank 0 writes and every rank loads; the port's own
+  checkpoint loads strictly.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+log = logging.getLogger("fovealseg")
 
 # file kind -> DeformSegmentation submodule
 SUBMODULE_OF_FILE = {
@@ -80,20 +89,26 @@ def from_jax_variables(params: dict, batch_stats: dict) -> dict[str, torch.Tenso
     return out
 
 
-def load_torch_checkpoint(model: torch.nn.Module, ckpt_dir: str, epoch="last") -> None:
+def load_torch_checkpoint(model: torch.nn.Module, ckpt_dir: str, epoch="last",
+                          strict: bool = False) -> None:
     """Load ``{saliency,compress,encoder,decoder}_epoch_{epoch}.pth`` into the
-    four submodules of ``model`` (each strictly). A missing file raises:
-    a sub-network left at its random init would serve quietly wrong masks."""
+    four submodules of ``model`` (see :func:`load_torch_weight_files`). A
+    missing file raises: a sub-network left at its random init would serve
+    quietly wrong masks."""
     load_torch_weight_files(model, {kind: os.path.join(ckpt_dir, f"{kind}_epoch_{epoch}.pth")
-                                     for kind in SUBMODULE_OF_FILE})
+                                     for kind in SUBMODULE_OF_FILE}, strict=strict)
 
 
-def load_torch_weight_files(model: torch.nn.Module, paths: Mapping[str, str]) -> list[str]:
+def load_torch_weight_files(model: torch.nn.Module, paths: Mapping[str, str],
+                            strict: bool = False) -> list[str]:
     """Load per-network ``.pth`` files into ``model``: ``paths`` maps a file
     kind ('saliency', 'compress', 'encoder', 'decoder') to a path. Empty
     entries are skipped, as the JAX package skips them; a named file that is
-    missing raises, and each file loads strictly into its submodule.
-    Returns the kinds loaded."""
+    missing raises. Each file loads as the JAX package's
+    ``import_torch_state_dict`` does: the keys that the submodule has, at
+    its shapes; a key it lacks or a shape that differs is skipped and logged
+    (``strict`` raises instead), and an entry the file lacks keeps its
+    value. Returns the kinds loaded."""
     loaded = []
     for kind, path in paths.items():
         if not path:
@@ -101,7 +116,23 @@ def load_torch_weight_files(model: torch.nn.Module, paths: Mapping[str, str]) ->
         if not os.path.exists(path):
             raise FileNotFoundError(f"checkpoint file missing: {path}")
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        getattr(model, SUBMODULE_OF_FILE[kind]).load_state_dict(sd, strict=True)
+        sub = getattr(model, SUBMODULE_OF_FILE[kind])
+        if strict:
+            sub.load_state_dict(sd, strict=True)
+        else:
+            own = sub.state_dict()
+            keep, skipped = {}, []
+            for k, v in sd.items():
+                if k not in own:
+                    skipped.append((k, "missing"))
+                elif tuple(own[k].shape) != tuple(v.shape):
+                    skipped.append((k, "shape"))
+                else:
+                    keep[k] = v
+            sub.load_state_dict(keep, strict=False)
+            if skipped:
+                log.warning("torch import %s: %d matched, %d skipped (strict=False): %s...",
+                            path, len(keep), len(skipped), skipped[:5])
         loaded.append(kind)
     return loaded
 
@@ -117,7 +148,10 @@ def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> lis
     """Write ``state`` (``train/step.py::TrainState``) for ``epoch``: the
     4-file set ``{kind}_epoch_{epoch}.pth`` and ``train_state_epoch_{epoch}.pth``,
     then the ``_last`` copies; with ``only_last`` just the ``_last`` files.
+    In a process group only rank 0 writes (the others return at once).
     Returns the written paths."""
+    if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+        return []
     os.makedirs(ckpt_dir, exist_ok=True)
     sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     files = {kind: {k[len(sub) + 1:]: v for k, v in sd.items() if k.startswith(sub + ".")}
@@ -147,7 +181,7 @@ def load_checkpoint(ckpt_dir: str, epoch, state) -> None:
     """Restore ``state`` in place from ``save_checkpoint``'s files for
     ``epoch`` (a number or 'last'): weights and BN statistics strictly, then
     the optimizer, the step, the dropout generator and the pool draw."""
-    load_torch_checkpoint(state.model, ckpt_dir, epoch)
+    load_torch_checkpoint(state.model, ckpt_dir, epoch, strict=True)
     ts = torch.load(os.path.join(ckpt_dir, f"train_state_epoch_{epoch}.pth"),
                     map_location="cpu", weights_only=True)
     state.optimizer.load_state_dict(ts["optimizer"])

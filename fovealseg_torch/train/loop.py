@@ -7,6 +7,10 @@ the host does not wait for the card each step. Each batch carries the
 step's ``edge_scale``, ``edge_only`` (the fix_seg window) and, when the
 Recasens pretrain pool can run, ``pool_s``. ``TPU.profile_dir`` records the
 first training epoch with ``torch.profiler`` (a Chrome trace there).
+
+Under data parallelism every rank runs the epochs (the steps average their
+metrics over the ranks), and rank 0 alone writes the logs, the history
+CSVs, the TensorBoard scalars, the visuals, the trace and the checkpoints.
 """
 
 from __future__ import annotations
@@ -180,9 +184,13 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
     epochs refresh only the ``_last`` files), eval every ``eval_per_epoch``,
     the history CSVs after each epoch; ``skip_train_for_eval`` evaluates once
     and stops. ``visual_fn(state, epoch)`` runs on the reference's cadence
-    (``epoch % 10 == 1``) when ``TRAIN.train_eval_visualise``."""
+    (``epoch % 10 == 1``) when ``TRAIN.train_eval_visualise``. In a process
+    group only rank 0 writes (see the module's note)."""
+    import torch.distributed as dist
+
     from fovealseg_torch.utils.observe import SummaryWriter
 
+    main = not dist.is_initialized() or dist.get_rank() == 0
     ckpt_dir = cfg.DIR
     os.makedirs(ckpt_dir, exist_ok=True)
     resumed = cfg.TRAIN.start_epoch > 0
@@ -190,8 +198,8 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
                                cfg.TRAIN.start_epoch) if resumed else []
     eval_history = load_history_csv(os.path.join(ckpt_dir, EVAL_HISTORY),
                                     cfg.TRAIN.start_epoch) if resumed else []
-    writer = SummaryWriter(os.path.join(ckpt_dir, "tensorboard"))
-    profile_dir = cfg.TPU.profile_dir
+    writer = SummaryWriter(os.path.join(ckpt_dir, "tensorboard")) if main else None
+    profile_dir = cfg.TPU.profile_dir if main else None
     profiled = False
     for epoch0 in range(cfg.TRAIN.start_epoch, cfg.TRAIN.num_epoch):
         epoch = epoch0 + 1
@@ -204,12 +212,13 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
                 summary = _profiled(profile_dir, run)
             else:
                 summary = run()
-            if visual_fn is not None and cfg.TRAIN.train_eval_visualise and epoch % 10 == 1:
-                visual_fn(state, epoch)
             log.info("epoch %d train: %s", epoch, json.dumps(summary))
-            writer.add_scalar("Loss/train", summary["loss"], epoch)
-            writer.add_scalar("Acc/train", summary["acc"], epoch)
-            writer.add_scalar("edge_loss/train", summary["edge_loss"], epoch)
+            if main:
+                if visual_fn is not None and cfg.TRAIN.train_eval_visualise and epoch % 10 == 1:
+                    visual_fn(state, epoch)
+                writer.add_scalar("Loss/train", summary["loss"], epoch)
+                writer.add_scalar("Acc/train", summary["acc"], epoch)
+                writer.add_scalar("edge_loss/train", summary["edge_loss"], epoch)
             if cfg.TRAIN.save_checkpoint:
                 on_cadence = (epoch % cfg.TRAIN.checkpoint_per_epoch == 0
                               or epoch == cfg.TRAIN.num_epoch)
@@ -218,11 +227,14 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
             mets = evaluate_1epoch(eval_step, state, val_loader())
             log.info("epoch %d eval: %s", epoch, json.dumps(mets))
             eval_history.append({"epoch": epoch, **mets})
-            for k, v in mets.items():
-                writer.add_scalar(f"{k}/val", v, epoch)
-        write_history_csv(os.path.join(ckpt_dir, HISTORY), history)
-        write_history_csv(os.path.join(ckpt_dir, EVAL_HISTORY), eval_history)
+            if main:
+                for k, v in mets.items():
+                    writer.add_scalar(f"{k}/val", v, epoch)
+        if main:
+            write_history_csv(os.path.join(ckpt_dir, HISTORY), history)
+            write_history_csv(os.path.join(ckpt_dir, EVAL_HISTORY), eval_history)
         if cfg.TRAIN.skip_train_for_eval:
             break
-    writer.close()
+    if main:
+        writer.close()
     return state

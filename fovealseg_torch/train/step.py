@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import random
+import warnings
 
 import torch
+import torch.distributed as dist
 
 from fovealseg_torch.core import losses as L
 from fovealseg_torch.core import metrics as M
@@ -56,6 +58,10 @@ class LossConfig:
     edge_blur_radius: float = 1.0  # MODEL.gt_grad_gaussian_blur_r
     saliency_hw: tuple = (80, 80)
     uniform_bi: bool = False  # MODEL.uniform_sample == 'BI': plain label downsample
+    # a step's loss may leave parameters unreached: the fix_seg window trains
+    # on the edge loss alone, and an override or a uniform grid cuts the
+    # warp off the saliency nets (DDP then searches for them each step)
+    unused_parameters: bool = True
 
     @classmethod
     def from_cfg(cls, cfg) -> "LossConfig":
@@ -73,6 +79,11 @@ class LossConfig:
             edge_blur_radius=float(cfg.MODEL.gt_grad_gaussian_blur_r),
             saliency_hw=tuple(cfg.TRAIN.saliency_input_size),
             uniform_bi=cfg.MODEL.uniform_sample == "BI",
+            unused_parameters=bool(
+                (cfg.TRAIN.opt_deform_LabelEdge
+                 and cfg.TRAIN.fix_seg_start_epoch <= min(cfg.TRAIN.fix_seg_end_epoch,
+                                                          cfg.TRAIN.num_epoch))
+                or cfg.MODEL.gt_gradient or cfg.MODEL.uniform_sample),
         )
 
 
@@ -155,59 +166,115 @@ def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None):
     return loss, mets
 
 
-def _forward(state: TrainState, batch: dict, train: bool, grad: bool) -> dict:
-    model = state.model
+def _forward(model, batch: dict, train: bool, grad: bool, rng: torch.Generator) -> dict:
     y = batch["seg_label"] if model.config.gt_gradient else None
     return model(batch["img_data"], batch["focus_point"], train=train, y=y,
-                 pool_s=batch.get("pool_s"), rng=state.generator, grad=grad)
+                 pool_s=batch.get("pool_s"), rng=rng, grad=grad)
 
 
-def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False):
+class LossForward(torch.nn.Module):
+    """The training forward and the loss as one module, the unit that DDP
+    wraps: its search for parameters the loss does not reach then starts
+    from the loss alone (the forward's other outputs reach every network)."""
+
+    def __init__(self, model: torch.nn.Module, lcfg: LossConfig):
+        super().__init__()
+        self.model = model
+        self.lcfg = lcfg
+
+    def forward(self, batch: dict, rng: torch.Generator, train: bool):
+        return compute_losses(_forward(self.model, batch, train, True, rng), batch, self.lcfg)
+
+
+def mean_over_ranks(mets: dict, group) -> dict:
+    """The metrics averaged over the ranks of ``group`` (one all-reduce of
+    the stacked f32 values), as ``pmean`` averages them."""
+    keys = list(mets)
+    t = torch.stack([mets[k].to(torch.float32) for k in keys])
+    dist.all_reduce(t, group=group)
+    t = t / dist.get_world_size(group)
+    return dict(zip(keys, t.unbind()))
+
+
+def ddp(module: torch.nn.Module, group, find_unused: bool):
+    """``module`` under ``DistributedDataParallel``: gradients averaged over
+    ``group``; buffers not broadcast at each forward (each rank keeps the BN
+    statistics it computes, as each JAX replica does; with cross-rank BN
+    they are equal anyway); with ``find_unused`` the parameters that the
+    loss does not reach are found each step."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = next(module.parameters()).device
+    with warnings.catch_warnings():
+        # newer releases rename the flag; the old name keeps the meaning here
+        warnings.filterwarnings("ignore", message=".*broadcast_buffers", category=FutureWarning)
+        return DistributedDataParallel(module, device_ids=[dev] if dev.type == "cuda" else None,
+                                       process_group=group, broadcast_buffers=False,
+                                       find_unused_parameters=find_unused)
+
+
+def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False, group=None):
     """Returns ``train_step(state, batch) -> metrics``, which updates
     ``state`` in place. ``schedules`` maps a group's ``schedule`` key to
     ``step -> lr factor`` (``train/optim.py``).
 
     ``fix_bn`` (``TRAIN.fix_bn``): the reference trains with the module in
     eval mode, so BN uses (and never updates) the running statistics and
-    dropout is off, while gradients still flow."""
+    dropout is off, while gradients still flow.
+
+    ``group`` (a process group): the data-parallel step of
+    ``parallel/mesh.py``. ``batch`` is this rank's block; the forward and
+    the loss run under DDP, made around ``state.model`` at the first call,
+    which averages the gradients over the group (and searches for unreached
+    parameters only under ``lcfg.unused_parameters``); the metrics are
+    averaged over the group too."""
     from fovealseg_torch.train.optim import set_learning_rates
+
+    wrapped: dict = {}
 
     def train_step(state: TrainState, batch: dict) -> dict:
         set_learning_rates(state.optimizer, schedules, state.step)
-        out = _forward(state, batch, train=not fix_bn, grad=True)
-        loss, mets = compute_losses(out, batch, lcfg)
+        if group is None:
+            out = _forward(state.model, batch, not fix_bn, True, state.generator)
+            loss, mets = compute_losses(out, batch, lcfg)
+        else:
+            if wrapped.get("model") is not state.model:
+                wrapped.update(model=state.model, ddp=ddp(LossForward(state.model, lcfg), group,
+                                                         lcfg.unused_parameters))
+            loss, mets = wrapped["ddp"](batch, state.generator, not fix_bn)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return mets
+        return mets if group is None else mean_over_ranks(mets, group)
 
     return train_step
 
 
-def make_forward_only_step(lcfg: LossConfig, fix_bn: bool = False):
+def make_forward_only_step(lcfg: LossConfig, fix_bn: bool = False, group=None):
     """``MODEL.gt_gradient_intrinsic_only``: the training forward and the
     metrics, no backward and no update (BN running statistics still update
-    unless ``fix_bn``); the step count advances."""
+    unless ``fix_bn``); the step count advances. With a process group the
+    metrics are averaged over it."""
 
     def forward_only_step(state: TrainState, batch: dict) -> dict:
-        out = _forward(state, batch, train=not fix_bn, grad=False)
+        out = _forward(state.model, batch, not fix_bn, False, state.generator)
         _, mets = compute_losses(out, batch, lcfg)
         state.step += 1
-        return mets
+        return mets if group is None else mean_over_ranks(mets, group)
 
     return forward_only_step
 
 
-def make_eval_step(lcfg: LossConfig):
+def make_eval_step(lcfg: LossConfig, group=None):
     """Warped-domain eval step: the eval forward and the loss/accuracy
-    metrics, without gradients."""
+    metrics, without gradients; with a process group, averaged over it."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
-        out = _forward(state, batch, train=False, grad=False)
+        out = _forward(state.model, batch, False, False, state.generator)
         _, mets = compute_losses(out, batch, lcfg)
-        return mets
+        return mets if group is None else mean_over_ranks(mets, group)
 
     return eval_step
 

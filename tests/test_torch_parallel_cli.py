@@ -1,0 +1,101 @@
+"""Port: the data-parallel train CLI (``--gpus 0-1``) and batch-split serving
+(``--mesh``) on the CPU, two gloo rank processes each, at the tiny size.
+
+* train: two ranks run 2 iterations; rank 0 alone writes the log, the
+  history and the checkpoint, which loads strictly into a fresh model and
+  resumes for 2 more iterations;
+* serve: ``--mesh 2`` writes labels bit-equal to one process's (``--mesh
+  0``): each rank serves its contiguous block of every micro-batch, and
+  eval-mode BN makes a frame's labels independent of its neighbours;
+* the refusals: a batch or micro-batch that does not divide by the ranks,
+  and a ``_nonsyn`` saliency net (batch statistics at serving).
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+
+from fovealseg_torch.cli import infer as infer_cli
+from fovealseg_torch.cli import train as train_cli
+
+TINY = ["TRAIN.task_input_size", "(16,16)", "TRAIN.saliency_input_size", "(16,16)",
+        "MODEL.gaussian_radius", "5", "MODEL.arch_encoder", "hrnetv2_nodownsp_tiny"]
+TRAIN_FLAGS = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--device", "cpu", "--canvas",
+               "64", "--gpus", "0-1", "--timeout", "600"]
+SERVE_FLAGS = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--device", "cpu", "--canvas",
+               "64", "--num-batches", "2"]
+
+
+def test_train_cli_two_ranks_write_once_and_resume(tmp_path, monkeypatch):
+    """Rank 0's TensorBoard writer uses TensorBoard's own stand-in for
+    TensorFlow here: a ``tensorflow`` that fails to import, on the ranks'
+    path, saves each CLI run the ~15-20 s of importing TensorFlow."""
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+    from fovealseg_torch.train import checkpoint as ckpt
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import create_optimizer
+
+    stub = tmp_path / "stub"
+    (stub / "tensorflow").mkdir(parents=True)
+    (stub / "tensorflow" / "__init__.py").write_text("raise ImportError('not for this test')\n")
+    monkeypatch.syspath_prepend(str(stub))
+    d = str(tmp_path / "run")
+    opts = TINY + ["TRAIN.batch_size_per_gpu", "2", "TRAIN.epoch_iters", "2",
+                   "TRAIN.eval_per_epoch", "100", "DIR", d]
+    ranks = train_cli.main(TRAIN_FLAGS + opts + ["TRAIN.num_epoch", "1"])
+    assert [r["step"] for r in ranks] == [2, 2]
+    assert [(r["topology"]["rank"], r["topology"]["world_size"], r["topology"]["backend"])
+            for r in ranks] == [(0, 2, "gloo"), (1, 2, "gloo")]
+    for kind in ("saliency", "compress", "encoder", "decoder", "train_state"):
+        for tag in (1, "last"):
+            assert os.path.exists(os.path.join(d, f"{kind}_epoch_{tag}.pth"))
+    with open(os.path.join(d, "train.log")) as fh:
+        log = fh.read()
+    assert "data parallel: 2 ranks over gloo, global batch 4" in log
+    assert log.count("Training Done!") == 1  # rank 0's log alone
+    with open(os.path.join(d, "history_epoch_last_0.csv")) as fh:
+        assert len(fh.read().strip().splitlines()) == 1 + 2
+
+    cfg = train_cli._parse(TRAIN_FLAGS + opts)[1]
+    model = DeformSegmentation(DeformConfig.from_cfg(cfg), device="cpu")
+    state = S.init_state(model, create_optimizer(cfg, model), 0)
+    ckpt.load_checkpoint(d, 1, state)
+    assert state.step == 2
+
+    ranks = train_cli.main(TRAIN_FLAGS + opts + ["TRAIN.num_epoch", "2",
+                                                 "TRAIN.auto_resume", "True"])
+    assert [r["step"] for r in ranks] == [4, 4]
+    with open(os.path.join(d, "history_epoch_last_0.csv")) as fh:
+        assert len(fh.read().strip().splitlines()) == 1 + 4
+    assert os.path.exists(os.path.join(d, "train_state_epoch_2.pth"))
+    shutil.rmtree(d)  # ~1 GB of the tiny model's checkpoints
+
+
+def _masks(d):
+    return {n: np.load(os.path.join(d, n)) for n in sorted(os.listdir(d)) if n.endswith(".npy")}
+
+
+def test_mesh_serving_is_bit_equal_to_one_process(tmp_path):
+    """``--mesh 2`` at batch 4 with micro-batches of 2 (one frame per rank)
+    against one process: the same 8 label maps, bit for bit."""
+    common = SERVE_FLAGS + ["--batch", "4", "--microbatch", "2"]
+    one = infer_cli.main(common + ["--out", str(tmp_path / "one")] + TINY)
+    ranks = infer_cli.main(common + ["--mesh", "2", "--out", str(tmp_path / "two")] + TINY)
+    assert len(ranks) == 2 and ranks[0]["frames"] == one["frames"] == 6
+    a, b = _masks(tmp_path / "one"), _masks(tmp_path / "two")
+    assert list(a) == list(b) and len(a) == 8
+    for name in a:
+        np.testing.assert_array_equal(b[name], a[name], err_msg=name)
+
+
+@pytest.mark.parametrize("flags,opts,error", [
+    (["--batch", "3", "--mesh", "2"], [], SystemExit),
+    (["--batch", "6", "--microbatch", "3", "--mesh", "2"], [], SystemExit),
+    (["--batch", "4", "--mesh", "2"], ["MODEL.saliency_net", "resnet18_nonsyn"],
+     NotImplementedError)])
+def test_mesh_serving_refusals(flags, opts, error):
+    """Refused before any rank starts."""
+    with pytest.raises(error):
+        infer_cli.main(SERVE_FLAGS + flags + TINY + opts)

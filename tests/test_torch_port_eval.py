@@ -360,9 +360,10 @@ def test_audit_dead_keys():
     assert audit_dead_keys(get_default_cfg()) == []
 
 
-def test_load_torch_weight_files(tmp_path, jax_weights):
-    """Empty entries are skipped, each file loads strictly, a missing one
-    raises."""
+def test_load_torch_weight_files(tmp_path, jax_weights, caplog):
+    """Empty entries are skipped, a missing file raises; a file's keys that
+    the model lacks are skipped and logged, as the JAX package's import
+    skips them (``strict=True`` raises for them)."""
     _, _, _, v = jax_weights
     sd = from_jax_variables(jax.tree.map(np.asarray, v["params"]),
                             jax.tree.map(np.asarray, v["batch_stats"]))
@@ -377,8 +378,14 @@ def test_load_torch_weight_files(tmp_path, jax_weights):
     with pytest.raises(FileNotFoundError):
         load_torch_weight_files(model, {"decoder": str(tmp_path / "missing.pth")})
     torch.save({"bogus": torch.zeros(1)}, tmp_path / "bad.pth")
+    before = {k: t.clone() for k, t in model.decoder.state_dict().items()}
+    with caplog.at_level("WARNING", logger="fovealseg"):
+        assert load_torch_weight_files(model, {"decoder": str(tmp_path / "bad.pth")}) == ["decoder"]
+    assert "bogus" in caplog.text
+    for k, t in model.decoder.state_dict().items():
+        torch.testing.assert_close(t, before[k], rtol=0, atol=0)
     with pytest.raises(RuntimeError):
-        load_torch_weight_files(model, {"decoder": str(tmp_path / "bad.pth")})
+        load_torch_weight_files(model, {"decoder": str(tmp_path / "bad.pth")}, strict=True)
 
 
 # ---------------------------------------------------------------- the CLI

@@ -163,10 +163,15 @@ def test_intrinsic_only_updates_no_parameter(tmp_path):
     assert any(not torch.equal(got[k], ref[k]) for k in ref if "running_mean" in k)
 
 
-@pytest.mark.parametrize("extra", [["--gpus", "0,1"], ["TPU.mesh_shape", "(2,2)"],
+@pytest.mark.parametrize("extra", [["--gpus", "0,1", "--backend", "nccl"],
+                                   ["TPU.mesh_shape", "(2,2)"],
                                    ["TPU.quantize", "int8"], ["TPU.conv_pack", "True"],
                                    ["--data", "/nonexistent"]])
 def test_train_cli_refuses_what_it_does_not_run(tmp_path, extra):
+    """Unported options raise NotImplementedError. ``--gpus`` naming two
+    devices trains data-parallel (``tests/test_torch_parallel_cli.py``);
+    what it refuses is NCCL between CPU ranks, a ValueError raised before
+    any rank starts."""
     flags, opts = (extra, []) if extra[0].startswith("--") else ([], extra)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "--backend" in extra else NotImplementedError):
         train_cli.main(flags + FLAGS + TINY + ["DIR", str(tmp_path), *opts])
