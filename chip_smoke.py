@@ -83,6 +83,22 @@ Phases (any failure exits non-zero):
         card) against one process: labels bit-equal, K1 launched once per
         rank per micro-batch (counted in the rank processes, which start at
         0), K1 held on the single process's inputs;
+     g. real data, in a temporary directory: an LVIS-format json (images
+        480x640 to 640x640, JPEGs) cooked through ``cli.cook.main`` (24
+        train, 8 valid), the flagship trained on it through
+        ``cli.train.main --data`` at b8 f32 (two reconciled epochs of 3
+        steps; the first batch on the card bit-equal to the reader's host
+        batch; samples/s beside phase 3d's synthetic figure) and its
+        checkpoint evaluated through ``cli.eval.main --data`` (K1, K2, K5
+        once each); the ADE20K multi-scale evaluation
+        (``cli.eval_odgt.main``, ``configs/ade20k.yaml``: 150 classes, 5
+        scales, the label round trip) of the flagship on four records
+        (512x683, 683x512, 375x501, 1024x1365), K2 and K5 counted per record
+        and held bit-equal to their plain versions (and timed) on the path's
+        own inputs at 1024x1365 and 375x501 (C = 150 and 1), one record's
+        labels with the plain K2 and K5 bit-equal to the kernels', the
+        device time per scale under torch.profiler, the largest device
+        round count, peak memory, and ``--no-deform`` on one record;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -1865,6 +1881,402 @@ def parallel_path(card, device, out_dir):
     return res, counts
 
 
+# --------------------------------------------------------------- phase 3g
+
+DATA_KEYS = ("img_data", "focus_point", "seg_label", "cls_label")
+# the ODGT records of phase 3g (H, W): two orientations, an odd H*W, a big frame
+ODGT_RECORDS = ((512, 683), (683, 512), (375, 501), (1024, 1365))
+ODGT_OPTS = ["VAL.y_sampled_reverse", "True", "TRAIN.seed", str(SEED)]
+
+
+def write_lvis(root: str, n_images: int = 12) -> tuple[str, str]:
+    """An LVIS-format json of ``n_images`` images from 480x640 to 640x640,
+    four polygons each over the monitored ids that the flagship's 51 classes
+    hold (21 of the 49 map to a training id of 50 or above), and a JPEG per
+    image. Returns (json path, image root)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from fovealseg_torch.data.lvis import CIDS_MONITORED, convert_index
+
+    cids = [c for c in CIDS_MONITORED if convert_index(c) < 50]
+    rng = np.random.default_rng(SEED + 70)
+    img_root = os.path.join(root, "images")
+    os.makedirs(img_root, exist_ok=True)
+    images, anns = [], []
+    for i in range(1, n_images + 1):
+        h = 480 if i == 1 else 640 if i == 2 else int(rng.integers(480, 641))
+        w = 640 if i <= 2 else int(rng.integers(480, 641))
+        images.append({"id": i, "height": h, "width": w})
+        cells = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+        img = cells.repeat(16, 0).repeat(16, 1)[:h, :w]
+        Image.fromarray(img).save(os.path.join(img_root, f"{i}.jpg"), quality=90)
+        for k in range(4):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            ry, rx = rng.uniform(0.08, 0.2) * h, rng.uniform(0.08, 0.2) * w
+            a = np.sort(rng.uniform(0, 2 * np.pi, 7))
+            poly = np.stack([cx + rx * np.cos(a), cy + ry * np.sin(a)], 1).reshape(-1)
+            anns.append({"id": 100 * i + k, "image_id": i, "category_id": cids[(4 * i + k) % 28],
+                         "segmentation": [poly.tolist()]})
+    path = os.path.join(root, "lvis.json")
+    with open(path, "w") as fh:
+        json.dump({"images": images, "annotations": anns}, fh)
+    return path, img_root
+
+
+@contextlib.contextmanager
+def watch_train_cli():
+    """The first batch the train step is given (device copies of its data
+    keys) and each epoch's seconds (ending in a synchronise), from inside the
+    train CLI."""
+    import torch
+
+    from fovealseg_torch.train import loop
+    from fovealseg_torch.train import step as S
+
+    seen = {"first": None, "epoch_s": []}
+    make, one_epoch = S.make_train_step, loop.train_one_epoch
+
+    def make_watched(*a, **k):
+        fn = make(*a, **k)
+
+        def step(state, batch):
+            if seen["first"] is None:
+                seen["first"] = {key: batch[key].clone() for key in DATA_KEYS}
+            return fn(state, batch)
+        return step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = one_epoch(*a, **k)
+        torch.cuda.synchronize()
+        seen["epoch_s"].append(time.perf_counter() - t)
+        return out
+
+    S.make_train_step, loop.train_one_epoch = make_watched, timed
+    try:
+        yield seen
+    finally:
+        S.make_train_step, loop.train_one_epoch = make, one_epoch
+
+
+def lvis_path(card, out_dir, synthetic_sps) -> tuple[dict, dict]:
+    """Phase 3g (a): cook an LVIS-format set through ``cli.cook.main`` (24
+    train, 8 valid), train the flagship on it through ``cli.train.main
+    --data`` at b8 f32 (two reconciled epochs of 3 steps; the first batch on
+    the card against the reader's host batch, bit for bit), then evaluate its
+    checkpoint through ``cli.eval.main --data`` (K1, K2 and K5 launched once
+    per batch)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.cli import cook
+    from fovealseg_torch.cli import eval as ecli
+    from fovealseg_torch.cli import train as tcli
+    from fovealseg_torch.data.lvis import DatasetLVIS
+
+    path, img_root = write_lvis(out_dir)
+    root, d = os.path.join(out_dir, "cook"), os.path.join(out_dir, "run")
+    t = time.perf_counter()
+    for part, n in (("train", "24"), ("valid", "40")):
+        if cook.main(["lvis", f"--{part}-json", path, "--dataset-partition", part,
+                      "--out", root, "--sample-num", n]) != 0:
+            raise AssertionError(f"cook {part} wrote nothing")
+    cook_s = time.perf_counter() - t
+    markers = ["DATASET.dataset_marker_train", "sp24", "DATASET.dataset_marker_valid", "sp8"]
+    train_ds = DatasetLVIS(os.path.join(root, "train"), img_root, marker="sp24")
+    val_ds = DatasetLVIS(os.path.join(root, "valid"), img_root, marker="sp8")
+    if (len(train_ds), len(val_ds), train_ds.n_textured) != (24, 8, 0):
+        raise AssertionError(f"cooked {len(train_ds)} train / {len(val_ds)} valid, "
+                             f"{train_ds.n_textured} without an image")
+    t = time.perf_counter()
+    for i in range(len(train_ds)):
+        train_ds[i]
+    host_ms = (time.perf_counter() - t) * 1e3 / len(train_ds)
+
+    opts = [*TRAIN_OPTS, "TPU.compute_dtype", "float32", *markers]
+    with watch_train_cli() as seen:
+        t = time.perf_counter()
+        state = tcli.main(["--cfg", "fovealseg_torch/configs/deform.yaml", "--data", root,
+                           "--image-root", img_root, *opts, "TRAIN.num_epoch", "2",
+                           "DIR", d])
+        cli_s = time.perf_counter() - t
+    if state.step != 6:
+        raise AssertionError(f"train --data: step {state.step} after 2 epochs of 24 / 8")
+    del state
+    host = next(iter(train_ds.batches(8, shuffle=True, seed=SEED + 1)))
+    for k in DATA_KEYS:
+        got, want = seen["first"][k], torch.from_numpy(host[k])
+        if got.device.type != "cuda" or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"train --data: the first batch's {k} on the card != the "
+                                 f"reader's host batch")
+    sps = 24 / seen["epoch_s"][-1]
+    reset_counts()
+    result = ecli.main(["--cfg", "fovealseg_torch/configs/deform.yaml", "--data", root,
+                        "--image-root", img_root, "--num-batches", "1", *opts,
+                        "VAL.batch_size", "8", "VAL.y_sampled_reverse", "True",
+                        "TRAIN.start_epoch", "2", "DIR", d])
+    counts = read_counts()
+    check_counts("lvis_eval (1 b8 batch)", counts,
+                 {**dict.fromkeys(counts, 0), "jfa_class": 1, "jfa_relpay": 1, "row_gather": 1})
+    check_result("eval --data of the epoch-2 checkpoint", result, 1)
+    res = dict(cook_s=cook_s, reader_host_ms_per_sample=host_ms, train_cli_s=cli_s,
+               epoch_s=seen["epoch_s"], train_cli_samples_per_s=sps,
+               synthetic_samples_per_s=synthetic_sps,
+               eval={k: v for k, v in result.items() if k != "per_class_iou"},
+               first_batch_bit_equal=True)
+    log(f"lvis: cooked 24 + 8 in {cook_s:.1f} s; reader {host_ms:.2f} ms/sample on the host "
+        f"(JPEG decode, pad); train CLI --data b8 f32: {sps:.2f} samples/s over epoch 2 "
+        f"(epochs {[round(s, 3) for s in seen['epoch_s']]} s; phase 3d synthetic "
+        f"{synthetic_sps:.2f}), first batch on the card bit-equal to the host's; eval --data: "
+        f"{json.dumps(res['eval'])} on {card}")
+    return res, counts
+
+
+def write_odgt(root: str) -> str:
+    """ADE20K-format records (JPEG image, PNG label of ids 0..150 in 16-pixel
+    blocks, 0 = ignore) at ``ODGT_RECORDS``; returns the list's path."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 80)
+    recs = []
+    for i, (h, w) in enumerate(ODGT_RECORDS):
+        cells = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+        img = cells.repeat(16, 0).repeat(16, 1)[:h, :w]
+        Image.fromarray(img).save(os.path.join(root, f"ADE_val_{i}.jpg"), quality=90)
+        seg = rng.integers(0, 151, (h // 16 + 1, w // 16 + 1)).repeat(16, 0).repeat(16, 1)
+        Image.fromarray(seg[:h, :w].astype(np.uint8)).save(os.path.join(root, f"ADE_val_{i}.png"))
+        recs.append({"fpath_img": f"ADE_val_{i}.jpg", "fpath_segm": f"ADE_val_{i}.png",
+                     "width": w, "height": h})
+    path = os.path.join(root, "val.odgt")
+    with open(path, "w") as fh:
+        fh.write("\n".join(json.dumps(r) for r in recs))
+    return path
+
+
+@contextlib.contextmanager
+def odgt_kernel_inputs():
+    """Copies of the inputs of K2 and K5 where ``core/unwarp.py`` calls them,
+    the last call per (kernel, canvas, channels), and every round count
+    ``jfa_rounds_from_grid`` returned (device scalars)."""
+    import torch
+
+    from fovealseg_torch.core import unwarp
+    from fovealseg_torch.models import deform_module
+
+    seen, rounds = {}, []
+    saved = {"nearest_payload_packed": unwarp.nearest_payload_packed,
+             "row_gather": unwarp.row_gather}
+    saved_rounds = deform_module.jfa_rounds_from_grid
+
+    def recording(name, fn):
+        def call(*args):
+            a0 = args[0]
+            key = (name, tuple(a0.shape[1:]) if name != "row_gather" else
+                   (args[1].shape[1], a0.shape[2]))
+            seen[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            return fn(*args)
+        return call
+
+    def rounds_of(grid, seg_hw):
+        r = saved_rounds(grid, seg_hw)
+        rounds.append(r)
+        return r
+
+    try:
+        for name, fn in saved.items():
+            setattr(unwarp, name, recording(name, fn))
+        deform_module.jfa_rounds_from_grid = rounds_of
+        yield seen, rounds
+    finally:
+        for name, fn in saved.items():
+            setattr(unwarp, name, fn)
+        deform_module.jfa_rounds_from_grid = saved_rounds
+
+
+def odgt_path(card, device, out_dir) -> tuple[dict, dict, dict]:
+    """Phase 3g (b): the multi-scale ADE20K evaluation (``cli.eval_odgt.main``)
+    of the flagship at ``configs/ade20k.yaml`` (150 classes, 5 scales,
+    ``imgMaxSize`` 1000, padding 32, the label round trip) on four records,
+    random weights from the seed; K2 and K5 counted per record and held
+    bit-equal to their plain versions on the path's own inputs at the
+    largest and the odd canvas (and timed there); one record's labels with
+    the plain K2 and K5 on the card bit-equal to the kernels'; the device
+    time per scale under torch.profiler; ``--no-deform`` on one record."""
+    import logging
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovealseg_torch.cli import eval_odgt
+    from fovealseg_torch.cli.eval import load_weights
+    from fovealseg_torch.configs import get_default_cfg
+    from fovealseg_torch.core import unwarp
+    from fovealseg_torch.ops import gather, jfa
+
+    odgt = write_odgt(out_dir)
+    args = ["--cfg", "fovealseg_torch/configs/ade20k.yaml", *ODGT_OPTS,
+            "DATASET.root_dataset", out_dir, "DATASET.list_val", odgt]
+    cli_args = args + ["DIR", f"{out_dir}/run"]
+    per_record, timing = [], {}
+
+    def on_record(idx, rec, res):
+        per_record.append({"hw": list(res["seg"].shape), "launches": read_counts()})
+        reset_counts()
+        for k in ("scores", "pred"):
+            if not bool(torch.isfinite(res[k].float()).all()):
+                raise AssertionError(f"odgt record {idx}: non-finite {k}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with odgt_kernel_inputs() as (seen, rounds):
+        result = eval_odgt.main(cli_args, on_record=on_record, timing=timing)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    max_rounds = max(int(r) for r in rounds)
+    counts = {k: sum(r["launches"][k] for r in per_record) for k in per_record[0]["launches"]}
+    n_scales = len(result["scales"])
+    for r in per_record:
+        # per scale: K2 and K5 for the score map, again for the label round trip
+        want = {**dict.fromkeys(counts, 0), "jfa_relpay": 2 * n_scales,
+                "row_gather": 2 * n_scales}
+        got = r["launches"]
+        if got["jfa_payload"]:  # K3 would take over past a host-known count; none is host-known
+            want["jfa_relpay"] -= got["jfa_payload"]
+            want["jfa_payload"] = got["jfa_payload"]
+        check_counts(f"odgt_eval record {r['hw']} ({n_scales} scales, score map + label "
+                     f"round trip)", got, want)
+    if result["num_samples"] != 4 or not all(
+            0 <= result[k] <= 1 for k in ("mean_iou", "pixel_acc", "mean_iou_deformed",
+                                          "pixel_acc_deformed", "y_reverse_iou",
+                                          "y_reverse_acc")):
+        raise AssertionError(f"odgt result malformed: {result}")
+
+    # the path's own inputs at the largest and the odd canvas, bit-equal; timed
+    pairs = {"nearest_payload_packed": (jfa.nearest_payload_packed,
+                                        jfa.nearest_payload_packed_plain),
+             "row_gather": (gather.row_gather, gather.row_gather_plain)}
+    held, numbers = [], {}
+    for (name, _), a in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        hw = tuple(a[0].shape[1:]) if name != "row_gather" else None
+        n_px = a[0].numel() if name != "row_gather" else a[1].numel()
+        if n_px not in (1024 * 1365, 375 * 501):
+            continue
+        kernel, plain = pairs[name]
+        if name == "nearest_payload_packed":
+            label = f"odgt {list(hw)}, runtime rounds={int(a[3])}"
+            r = hold("jfa_relpay", label, lambda a=a: kernel(*a), lambda a=a: plain(*a),
+                     n_px * (1 + 4 + 4) / HBM_BYTES_PER_S * 1e3, n=10)
+            r["rounds"] = int(a[3])
+            numbers[f"jfa_relpay {list(hw)}"] = r
+        else:
+            table, idx = a
+            c = table.shape[2]
+            label = f"odgt C = {c}, {n_px} px"
+            flat = idx.reshape(-1).long()
+            table2 = table.reshape(-1, c)
+            r = hold("row_gather", label, lambda a=a: kernel(*a), lambda a=a: plain(*a),
+                     (n_px * c * 4 + n_px * 4 + table.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+                     libraries={"index_select": lambda t=table2, i=flat: torch.index_select(
+                         t, 0, i)}, n=10)
+            out_k = kernel(*a)
+            r["variant"] = gather.VARIANT_NAMES[gather.gather_variant(
+                c, idx.shape[1], table.data_ptr(), idx.data_ptr(), out_k.data_ptr())]
+            del out_k
+            numbers[f"row_gather C={c} {n_px}px"] = r
+        held.append(label)
+    if len(held) != 6:  # K2, K5 at C = 150 and C = 1, at both canvases
+        raise AssertionError(f"odgt: held {held}, expected K2 and K5 (C = 150, 1) at "
+                             f"1024x1365 and 375x501")
+    del seen
+    torch.cuda.empty_cache()
+
+    # one record again: plain K2 and K5 on the card give the same labels
+    cfg = get_default_cfg()
+    cfg.merge_from_file("fovealseg_torch/configs/ade20k.yaml")
+    cfg.merge_from_list(args[2:])
+    module = eval_odgt.build_module(cfg, False, device)
+    load_weights(module, cfg, None, "last", logging.getLogger("fovealseg"))
+    ds = eval_odgt.val_dataset(cfg)
+    rec = ds[2]  # 375x501
+    ran = eval_odgt.evaluate_record(module, rec, (0.5, 0.5), device, rev_y=True)
+    saved = {"nearest_payload_packed": unwarp.nearest_payload_packed,
+             "row_gather": unwarp.row_gather}
+    try:
+        unwarp.nearest_payload_packed = jfa.nearest_payload_packed_plain
+        unwarp.row_gather = gather.row_gather_plain
+        ref = eval_odgt.evaluate_record(module, rec, (0.5, 0.5), device, rev_y=True)
+    finally:
+        for name, fn in saved.items():
+            setattr(unwarp, name, fn)
+    for k in ("pred", "y_sampled_reverse", "scores"):
+        if not torch.equal(ran[k], ref[k]):
+            raise AssertionError(f"odgt record 375x501: {k} with the kernels != with the plain "
+                                 f"versions on the card")
+    del ran, ref
+
+    # device time per scale, the big record
+    big = ds[3]
+    eval_odgt.evaluate_record(module, big, (0.5, 0.5), device, rev_y=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eval_odgt.evaluate_record(module, big, (0.5, 0.5), device, rev_y=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eval_odgt.evaluate_record(module, big, (0.5, 0.5), device, rev_y=True)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    top = {}
+    for e in kernels:
+        top[e.name[:50]] = top.get(e.name[:50], 0.0) + e.time_range.elapsed_us() / 1e3
+    per_scale = dict(record="1024x1365", record_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                     device_busy_ms_per_scale=busy_ms / n_scales,
+                     kernels_per_scale=len(kernels) / n_scales,
+                     top_kernels_ms=dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]))
+    del module, big
+    torch.cuda.empty_cache()
+
+    nd = eval_odgt.main(cli_args[:2] + ["--no-deform", "--num-samples", "1"] + cli_args[2:])
+    if nd["num_samples"] != 1 or "mean_iou_deformed" in nd or not 0 <= nd["mean_iou"] <= 1:
+        raise AssertionError(f"odgt --no-deform result malformed: {nd}")
+    res = dict(result=result, no_deform=nd, seconds_per_record=timing["seconds_per_record"],
+               records=[r["hw"] for r in per_record], launches_per_record=per_record,
+               max_device_rounds=max_rounds, peak_gib=peak_gib, per_scale=per_scale,
+               compute_dtype=cfg.TPU.compute_dtype)
+    log(f"odgt: {json.dumps(result)}; seconds per record "
+        f"{[round(s, 3) for s in timing['seconds_per_record']]} for {res['records']}; largest "
+        f"device round count {max_rounds}; peak {peak_gib:.2f} GiB; 1024x1365 record: "
+        f"{wall_ms:.1f} ms wall, device busy {busy_ms / n_scales:.2f} ms and "
+        f"{len(kernels) / n_scales:.0f} kernels per scale ({cfg.TPU.compute_dtype}); "
+        f"--no-deform: {json.dumps(nd)} on {card}")
+    log(f"odgt top kernels (ms per record): {json.dumps(per_scale['top_kernels_ms'])}")
+    return res, counts, numbers
+
+
+def real_data_path(card, device, out_dir, synthetic_sps):
+    """Phase 3g."""
+    import os
+
+    t = time.perf_counter()
+    os.makedirs(f"{out_dir}/lvis", exist_ok=True)
+    os.makedirs(f"{out_dir}/odgt", exist_ok=True)
+    lvis, lvis_counts = lvis_path(card, f"{out_dir}/lvis", synthetic_sps)
+    odgt, odgt_counts, numbers = odgt_path(card, device, f"{out_dir}/odgt")
+    seconds = time.perf_counter() - t
+    log(f"phase 3g took {seconds:.1f} s on {card}")
+    return dict(lvis=lvis, odgt=odgt, phase_3g_s=seconds), {"lvis_eval": lvis_counts,
+                                                           "odgt_eval": odgt_counts}, numbers
+
+
 def main() -> int:
     import torch
 
@@ -1910,6 +2322,10 @@ def main() -> int:
     log("== phase 3f: data parallelism")
     with tempfile.TemporaryDirectory() as out_dir:
         parallel, parallel_counts = parallel_path(card, device, out_dir)
+    log("== phase 3g: real data (cooked LVIS: cook, train, eval; the ADE20K ODGT evaluation)")
+    with tempfile.TemporaryDirectory() as out_dir:
+        real_data, real_counts, real_numbers = real_data_path(
+            card, device, out_dir, training["train"]["float32"]["samples_per_s"])
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -1930,7 +2346,8 @@ def main() -> int:
                    "eval": eval_counts[name], "eval_b2_configs": eval_other_counts[name],
                    "train": train_counts[name],
                    **{path: c[name] for path, c in encoder_counts.items()},
-                   **{path: c.get(name, 0) for path, c in parallel_counts.items()}}
+                   **{path: c.get(name, 0) for path, c in parallel_counts.items()},
+                   **{path: c[name] for path, c in real_counts.items()}}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -1942,6 +2359,12 @@ def main() -> int:
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"], "bound_by": "bytes",
             "library_ms": n["library_ms"], "libraries": n["libraries"], "rounds": n.get("rounds"),
         })
+        odgt = {label: {k: v for k, v in r.items() if k != "libraries"}
+                for label, r in real_numbers.items()
+                if label.startswith({"jfa_relpay": "jfa_relpay", "row_gather": "row_gather"}
+                                    .get(name, "-"))}
+        if odgt:
+            kernels[-1]["odgt"] = odgt
         if "trips" in n:
             kernels[-1]["launches_per_call"] = n["trips"]["launches_per_call"]
         if "launches_per_call" in n:
@@ -1955,7 +2378,7 @@ def main() -> int:
                                      if k in c}
                                     for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
-                    "encoders": encoders, "parallel": parallel,
+                    "encoders": encoders, "parallel": parallel, "real_data": real_data,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))

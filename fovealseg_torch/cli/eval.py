@@ -9,13 +9,16 @@ hd95 and the trimap run per sample on the host.
 
 Usage:
   python -m fovealseg_torch.cli.eval --cfg fovealseg_torch/configs/deform.yaml \
-      [--torch-ckpt DIR --torch-epoch N] [--num-batches N] [--canvas 640] \
-      [--device cuda] [KEY VALUE ...]
+      [--data synthetic|<cook root> [--image-root DIR]] [--torch-ckpt DIR --torch-epoch N] \
+      [--num-batches N] [--canvas 640] [--device cuda] [KEY VALUE ...]
 
-The stream is the synthetic set (``--data synthetic``), drawn from
-``default_rng(TRAIN.seed)``. The JAX CLI draws one batch to initialise its
-model before its loop, so it evaluates draws 2..N+1; this CLI draws and
-discards one batch, so that both evaluate the same frames.
+The stream is the synthetic set (``--data synthetic``, the default), drawn
+from ``default_rng(TRAIN.seed)``. The JAX CLI draws one batch to initialise
+its model before its loop, so it evaluates draws 2..N+1; this CLI draws and
+discards one batch, so that both evaluate the same frames. ``--data <cook
+root>`` evaluates the first ``--num-batches`` batches of the cooked LVIS
+``valid`` partition (``DATASET.dataset_marker_valid``, images from
+``--image-root``) in order, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -145,7 +148,7 @@ def accumulate(batches, cfg) -> dict:
     return acc.result()
 
 
-def refuse_unported(cfg, data: str) -> None:
+def refuse_unported(cfg) -> None:
     """Raise for every option this CLI does not run."""
     if cfg.VAL.ensemble or cfg.VAL.approx_pred_Fxlr_by_ensemble:
         raise NotImplementedError(
@@ -156,29 +159,34 @@ def refuse_unported(cfg, data: str) -> None:
         raise NotImplementedError(
             "TPU.quantize and TPU.conv_pack are tuned to the TPU's matrix unit and are not "
             "ported (ROADMAP, 'Not to port'); unset them")
-    if data != "synthetic":
-        raise NotImplementedError(
-            f"--data {data!r}: the LVIS, Cityscapes and ODGT readers are not ported yet "
-            "(ROADMAP queue 1, 'the dataset readers'); use --data synthetic")
 
 
-def load_weights(module, cfg, torch_ckpt, torch_epoch, log) -> None:
-    """Weights in the JAX CLI's order of precedence."""
+def load_weights(module, cfg, torch_ckpt, torch_epoch, log, kinds=None,
+                 dir_checkpoint: bool = True) -> None:
+    """Weights in the JAX CLI's order of precedence: ``--torch-ckpt``, then
+    ``MODEL.weights_*`` (a named file that is missing raises), then, with
+    ``dir_checkpoint``, the training checkpoint in ``DIR`` at
+    ``TRAIN.start_epoch``, else random weights from ``TRAIN.seed`` with a
+    warning. ``kinds`` names the networks ``module`` holds (default: all
+    four file kinds)."""
     from fovealseg_torch.models.layers import init_weights
     from fovealseg_torch.train import checkpoint as ckpt
 
+    kinds = tuple(ckpt.SUBMODULE_OF_FILE) if kinds is None else tuple(kinds)
     if torch_ckpt:
-        ckpt.load_torch_checkpoint(module, torch_ckpt, torch_epoch)
+        ckpt.load_torch_weight_files(
+            module, {k: os.path.join(torch_ckpt, f"{k}_epoch_{torch_epoch}.pth") for k in kinds})
         log.info("imported torch checkpoint from %s", torch_ckpt)
         return
     files = {"encoder": cfg.MODEL.weights_encoder, "decoder": cfg.MODEL.weights_decoder,
              "saliency": cfg.MODEL.weights_net_saliency,
              "compress": cfg.MODEL.weights_net_compress}
+    files = {k: files[k] for k in kinds}
     if any(files.values()):
         ckpt.load_torch_weight_files(module, files)
-        log.info("loaded per-net torch weights from MODEL.weights_*")
+        log.info("loaded MODEL.weights_* files: %s", {k: v for k, v in files.items() if v})
         return
-    if cfg.TRAIN.start_epoch > 0 and os.path.isdir(cfg.DIR):
+    if dir_checkpoint and cfg.TRAIN.start_epoch > 0 and os.path.isdir(cfg.DIR):
         # the training checkpoint of that epoch in DIR (train/checkpoint.py)
         ckpt.load_torch_checkpoint(module, cfg.DIR, cfg.TRAIN.start_epoch, strict=True)
         log.info("loaded the training checkpoint of epoch %d from %s", cfg.TRAIN.start_epoch,
@@ -190,6 +198,20 @@ def load_weights(module, cfg, torch_ckpt, torch_epoch, log) -> None:
         "evaluating RANDOMLY INITIALIZED weights; metrics are only meaningful for smoke tests")
 
 
+def eval_device(args) -> torch.device:
+    """``--device``, on the card that ``--gpus`` names (one card)."""
+    from fovealseg_torch import resolve_device
+    from fovealseg_torch.cli.train import parse_devices
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and args.gpus:
+        ids = parse_devices(args.gpus)
+        if len(ids) != 1:
+            raise ValueError(f"--gpus {args.gpus}: the evaluation runs on one card; name one")
+        device = torch.device("cuda", ids[0])
+    return device
+
+
 def synthetic_stream(cfg, num_batches: int, canvas: int):
     """The JAX CLI's frames: one draw discarded, then ``num_batches``."""
     from fovealseg_torch.data.synthetic import make_batch
@@ -198,6 +220,23 @@ def synthetic_stream(cfg, num_batches: int, canvas: int):
     make_batch(rng, cfg.VAL.batch_size, canvas=canvas)
     for _ in range(num_batches):
         yield make_batch(rng, cfg.VAL.batch_size, canvas=canvas)
+
+
+def cooked_stream(cfg, root: str, image_root, num_batches: int, canvas: int = 640):
+    """The first ``num_batches`` batches of the cooked LVIS ``valid``
+    partition (``DATASET.dataset_marker_valid``, cooked on a ``canvas``
+    square), in order, as the JAX CLI reads them. A training id that does not
+    fit ``DATASET.num_class`` raises."""
+    from fovealseg_torch.data.loader import check_class_ids
+    from fovealseg_torch.data.lvis import DatasetLVIS
+
+    ds = DatasetLVIS(os.path.join(root, "valid"), image_root, canvas=canvas,
+                     marker=cfg.DATASET.dataset_marker_valid)
+    check_class_ids(ds.class_ids(), cfg.DATASET.num_class, f"--data {root} (lvis valid)")
+    for i, b in enumerate(ds.batches(cfg.VAL.batch_size, shuffle=False)):
+        if i >= num_batches:
+            break
+        yield b
 
 
 def _emit_visuals(cfg, writer, vis_dir, bi, x_np, out, pred_cls, gt):
@@ -249,22 +288,23 @@ def main(argv=None, timing: dict | None = None, on_batch=None):
     are added, with ``infer``'s outputs, the labels and the accumulator."""
     parser = argparse.ArgumentParser(description="fovealseg full-res eval on a CUDA device")
     parser.add_argument("--cfg", required=True)
-    parser.add_argument("--gpus", default="0")
+    parser.add_argument("--gpus", default="0", help="the card to run on (one)")
     parser.add_argument("--data", default="synthetic")
     parser.add_argument("--image-root", default=None)
     parser.add_argument("--torch-ckpt", default=None, help="dir with {kind}_epoch_{N}.pth files")
     parser.add_argument("--torch-epoch", default="last")
     parser.add_argument("--num-batches", type=int, default=16)
-    parser.add_argument("--canvas", type=int, default=640, help="synthetic canvas size")
+    parser.add_argument("--canvas", type=int, default=640,
+                        help="the synthetic canvas, or the cooked set's (640, as the JAX CLI's "
+                             "reader assumes)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
 
-    from fovealseg_torch import resolve_device
     from fovealseg_torch.configs import audit_dead_keys, get_default_cfg
     from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
 
-    device = resolve_device(args.device)
+    device = eval_device(args)
     cfg = get_default_cfg()
     cfg.merge_from_file(args.cfg)
     if args.opts:
@@ -272,7 +312,7 @@ def main(argv=None, timing: dict | None = None, on_batch=None):
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("fovealseg.eval")
     audit_dead_keys(cfg, log)
-    refuse_unported(cfg, args.data)
+    refuse_unported(cfg)
 
     dtype = torch.bfloat16 if cfg.TPU.compute_dtype == "bfloat16" else torch.float32
     module = DeformSegmentation(DeformConfig.from_cfg(cfg), dtype=dtype, device=device)
@@ -304,7 +344,11 @@ def main(argv=None, timing: dict | None = None, on_batch=None):
 
     acc = EvalAccumulator(cfg)
     t0, frames = None, 0
-    for batch in synthetic_stream(cfg, args.num_batches, args.canvas):
+    if args.data == "synthetic":
+        stream = synthetic_stream(cfg, args.num_batches, args.canvas)
+    else:
+        stream = cooked_stream(cfg, args.data, args.image_root, args.num_batches, args.canvas)
+    for batch in stream:
         x = torch.from_numpy(batch["img_data"]).to(device)
         f = torch.from_numpy(batch["focus_point"]).to(device)
         y = batch["seg_label"]
@@ -337,7 +381,7 @@ def main(argv=None, timing: dict | None = None, on_batch=None):
     seconds = time.perf_counter() - t0 if t0 is not None else 0.0
     if timing is not None:
         timing.update(frames=frames, seconds=seconds,
-                      note="wall clock after the first batch; synthetic data generation "
+                      note="wall clock after the first batch; making or reading the data "
                            "and the host metrics inside the window")
     if writer is not None:
         writer.close()

@@ -15,8 +15,19 @@ The global batch is ``TRAIN.batch_size_per_gpu x N``; ``TRAIN.auto_batch
 auto10`` counts N devices, as the JAX CLI does. Cross-rank BN follows
 ``TPU.sync_bn`` when N > 1. Rank 0 logs, writes the history and the
 checkpoints; every rank loads them. ``TPU.mesh_shape`` with two non-zero
-dimensions (the 2-D mesh), ``TPU.quantize`` and ``TPU.conv_pack`` raise,
-and so does ``--data`` other than ``synthetic``. The synthetic stream is made
+dimensions (the 2-D mesh), ``TPU.quantize`` and ``TPU.conv_pack`` raise.
+
+``--data <cook root>`` trains on a cooked set (``python -m
+fovealseg_torch.cli.cook``): ``--dataset lvis`` (with ``--image-root`` for
+the JPEGs) or ``cityscapes``, the ``train`` and ``valid`` partitions under
+``DATASET.dataset_marker_{train,valid}``. As in the JAX CLI, an epoch is one
+pass over the train partition: ``TRAIN.epoch_iters`` is set to it (with a
+warning) before the optimizer is built, and a set smaller than the global
+batch exits. Epoch ``e`` shuffles with ``TRAIN.seed + e``; each rank reads
+only its contiguous block of each global batch, in the prefetch thread, into
+pinned host memory, and copies it to the card with ``non_blocking=True``.
+
+``--data synthetic`` (the default): the stream is made
 on the device (``data/synthetic.py::make_batch_device``): epoch ``e`` draws
 the global batch from a generator seeded with ``TRAIN.seed + e`` and each
 rank keeps its contiguous block (``parallel/mesh.py::shard_batch``), so a resumed run sees the batches an uninterrupted one would and
@@ -37,7 +48,7 @@ import os
 import re
 
 
-def refuse_unported(cfg, args) -> None:
+def refuse_unported(cfg) -> None:
     """Raise for every option this CLI does not run."""
     mesh = tuple(cfg.TPU.mesh_shape)
     if len(mesh) == 2 and all(s > 0 for s in mesh):
@@ -47,10 +58,6 @@ def refuse_unported(cfg, args) -> None:
         raise NotImplementedError(
             "TPU.quantize and TPU.conv_pack are tuned to the TPU's matrix unit and are not "
             "ported (ROADMAP, 'Not to port'); unset them")
-    if args.data != "synthetic":
-        raise NotImplementedError(
-            f"--data {args.data!r}: the LVIS and Cityscapes readers are not ported yet "
-            "(ROADMAP queue 1, 'the dataset readers'); use --data synthetic")
 
 
 def parse_devices(spec: str) -> list[int]:
@@ -138,7 +145,9 @@ def _parse(argv):
                         help="the ranks' backend (default: NCCL on cards, gloo on the CPU)")
     parser.add_argument("--timeout", type=float, default=24 * 3600.0,
                         help="deadline of a data-parallel run, in seconds")
-    parser.add_argument("--canvas", type=int, default=640, help="synthetic canvas size")
+    parser.add_argument("--canvas", type=int, default=640,
+                        help="the synthetic canvas, or the cooked LVIS set's (640, as the JAX "
+                             "CLI's reader assumes)")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
 
@@ -148,8 +157,65 @@ def _parse(argv):
     cfg.merge_from_file(args.cfg)
     if args.opts:
         cfg.merge_from_list(args.opts)
-    refuse_unported(cfg, args)
+    refuse_unported(cfg)
     return args, cfg
+
+
+def host_to_device(a, device):
+    """A numpy array on ``device``: on a card through pinned host memory and
+    a copy that does not block the host."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _readers(args, cfg, global_batch: int, log):
+    """The cooked ``train`` and ``valid`` readers of ``--data``, with
+    ``TRAIN.epoch_iters`` set to one pass over the train partition (and
+    ``TRAIN.max_iters`` after it). A training id that does not fit
+    ``DATASET.num_class`` raises; a set smaller than the global batch
+    exits."""
+    if args.dataset == "cityscapes":
+        from fovealseg_torch.data.cityscapes import DatasetCityscapes
+
+        train_ds = DatasetCityscapes(os.path.join(args.data, "train"),
+                                     marker=cfg.DATASET.dataset_marker_train)
+        val_ds = DatasetCityscapes(os.path.join(args.data, "valid"),
+                                   marker=cfg.DATASET.dataset_marker_valid)
+        log.info("Cityscapes cooked data: %d train / %d val", len(train_ds), len(val_ds))
+    else:
+        from fovealseg_torch.data.lvis import DatasetLVIS
+
+        train_ds = DatasetLVIS(os.path.join(args.data, "train"), args.image_root,
+                               canvas=args.canvas, marker=cfg.DATASET.dataset_marker_train)
+        val_ds = DatasetLVIS(os.path.join(args.data, "valid"), args.image_root,
+                             canvas=args.canvas, marker=cfg.DATASET.dataset_marker_valid)
+        log.info("LVIS cooked data: %d train / %d val", len(train_ds), len(val_ds))
+    from fovealseg_torch.data.loader import check_class_ids
+
+    for part, ds in (("train", train_ds), ("valid", val_ds)):
+        check_class_ids(ds.class_ids(), cfg.DATASET.num_class,
+                        f"--data {args.data} ({args.dataset} {part})")
+    # an epoch is one pass over the train partition, as in the reference; the
+    # LR schedule and auto-resume's step // epoch_iters count in those epochs
+    steps_per_epoch = len(train_ds) // max(global_batch, 1)
+    if steps_per_epoch == 0 or len(val_ds) < global_batch:
+        raise SystemExit(
+            f"cooked set too small for the global batch: {len(train_ds)} train / "
+            f"{len(val_ds)} val samples but batch_size_per_gpu={cfg.TRAIN.batch_size_per_gpu} x "
+            f"{global_batch // cfg.TRAIN.batch_size_per_gpu} devices = {global_batch}; reduce "
+            f"the batch or the device count (--gpus)")
+    if steps_per_epoch != cfg.TRAIN.epoch_iters:
+        log.warning("TRAIN.epoch_iters=%d but the cooked train set yields %d batches/epoch: "
+                    "using %d so the LR schedule and resume accounting stay in step",
+                    cfg.TRAIN.epoch_iters, steps_per_epoch, steps_per_epoch)
+        cfg.TRAIN.epoch_iters = steps_per_epoch
+        cfg.TRAIN.max_iters = cfg.TRAIN.epoch_iters * cfg.TRAIN.num_epoch
+    return train_ds, val_ds
 
 
 def _train(args, cfg, rank):
@@ -200,6 +266,10 @@ def _train(args, cfg, rank):
         log.info("config:\n%s", cfg.dump())
         if r == 0:
             audit_dead_keys(cfg, log)
+        global_batch = cfg.TRAIN.batch_size_per_gpu * world
+        if args.data != "synthetic":
+            # before the optimizer: the stage schedules read TRAIN.epoch_iters
+            train_ds, val_ds = _readers(args, cfg, global_batch, log)
         # convs: TF32 in f32 on the card, set explicitly (the grid solver and
         # the resizes run full f32 matmuls whatever this says)
         torch.backends.cudnn.conv.fp32_precision = "tf32"
@@ -232,7 +302,6 @@ def _train(args, cfg, rank):
             train_step = S.make_train_step(lcfg, make_stage_schedules(cfg),
                                            fix_bn=cfg.TRAIN.fix_bn, group=group)
         eval_step = S.make_eval_step(lcfg, group=group)
-        global_batch = cfg.TRAIN.batch_size_per_gpu * world
         num_fg = cfg.DATASET.num_class - 1
 
         def stream(seed: int, n: int):
@@ -242,11 +311,24 @@ def _train(args, cfg, rank):
                 yield shard_batch(make_batch_device(gen, global_batch, args.canvas, num_fg), r,
                                   world)
 
-        def train_loader(epoch):
-            return prefetch(stream(cfg.TRAIN.seed + epoch, cfg.TRAIN.epoch_iters))
+        def to_device(batch):
+            return {k: host_to_device(v, device) for k, v in batch.items()}
 
-        def val_loader():
-            return stream(cfg.TRAIN.seed + 10_000, 8)
+        if args.data == "synthetic":
+            def train_loader(epoch):
+                return prefetch(stream(cfg.TRAIN.seed + epoch, cfg.TRAIN.epoch_iters))
+
+            def val_loader():
+                return stream(cfg.TRAIN.seed + 10_000, 8)
+        else:
+            def train_loader(epoch):
+                return prefetch(train_ds.batches(global_batch, shuffle=True,
+                                                 seed=cfg.TRAIN.seed + epoch, rank=r,
+                                                 world=world), transform=to_device)
+
+            def val_loader():
+                return prefetch(val_ds.batches(global_batch, shuffle=False, rank=r, world=world),
+                                transform=to_device)
 
         def visual_fn(state, epoch):
             from fovealseg_torch.utils.visuals import collect_deform_visuals, dump_batch_visuals

@@ -76,13 +76,16 @@ def accuracy(preds: torch.Tensor, label: torch.Tensor):
 
 def intersection_and_union(preds: torch.Tensor, label: torch.Tensor, num_class: int):
     """Per-class (intersection, union) int64 histograms. Pixels with
-    label < 0 are ignored (the prediction is shifted out of range there)."""
+    label < 0 are ignored (the prediction is shifted out of range there); a
+    negative prediction on a labelled pixel counts as class 0, as
+    ``jnp.bincount`` clips it (the label round trip carries -1 ids)."""
     preds = torch.where(label >= 0, preds, num_class).to(torch.int64)
     label = torch.where(label >= 0, label, num_class).to(torch.int64)
     inter = torch.where(preds == label, preds, num_class)
 
     def hist(x):
-        return torch.bincount(x.reshape(-1), minlength=num_class + 1)[:num_class]
+        return torch.bincount(torch.clamp(x.reshape(-1), min=0),
+                              minlength=num_class + 1)[:num_class]
 
     area_inter = hist(inter)
     union = hist(preds) + hist(label) - area_inter

@@ -1,6 +1,7 @@
-"""Background prefetch (counterpart of ``fovealseg_tpu/data/loader.py::prefetch``).
+"""Host input pipeline (counterpart of ``fovealseg_tpu/data/loader.py``):
+the dataset interface, a whole-dataset RAM cache, and background prefetch.
 
-A thread runs the batch iterable ``size`` items ahead of the consumer, so
+``prefetch``: a thread runs the batch iterable ``size`` items ahead of the consumer, so
 host batch preparation overlaps the card's steps. When the consumer stops
 early (a ``break``, an exception, the generator closed), the worker is told
 to stop and exits instead of blocking on a full queue.
@@ -11,6 +12,44 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator
+
+
+class AbstractDataset:
+    """The dataset interface: ``len`` and indexing."""
+
+    def __len__(self):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def __getitem__(self, idx):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class CachedDataset(AbstractDataset):
+    """Keeps every item of ``base`` in RAM after its first read."""
+
+    def __init__(self, base):
+        self.base = base
+        self._cache: dict = {}
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx):
+        if idx not in self._cache:
+            self._cache[idx] = self.base[idx]
+        return self._cache[idx]
+
+
+def check_class_ids(class_ids, num_class: int, where: str) -> None:
+    """Raise unless every training id lies in ``[0, num_class - 1)``: the
+    train and eval steps label an object pixel with its id and the rest with
+    ``num_class - 1``, the background."""
+    bad = sorted({int(c) for c in class_ids if not 0 <= int(c) < num_class - 1})
+    if bad:
+        raise ValueError(
+            f"{where}: training ids {bad} do not fit DATASET.num_class={num_class} (object ids "
+            f"must lie in [0, {num_class - 1}); {num_class - 1} is the background); cook only "
+            f"the classes the config trains, or raise DATASET.num_class")
 
 
 def prefetch(iterable: Iterable, size: int = 2, transform: Callable | None = None) -> Iterator:

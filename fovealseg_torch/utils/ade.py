@@ -1,54 +1,56 @@
-"""Class palettes for the eval visualisation (counterpart of
-``fovealseg_tpu/utils/ade.py::color_encode`` and ``class_palette``).
+"""ADE20K class metadata and palettes (counterpart of ``fovealseg_tpu/utils/ade.py``).
 
-150 classes take the ADE20K palette (the contents of the reference's
-``data/color150.mat``); any other class count takes the HSV wheel of
-:func:`fovealseg_torch.utils.visuals.generate_colormap_colors`.
+* ``load_object_info(csv_path)`` reads an object-info csv of the reference's
+  schema (Idx, Ratio, Train, Val, Stuff, Name) when it exists, else gives the
+  built-in ADE20K table (150 classes) or generic ``class_{i}`` names.
+* ``class_palette(150)`` is the ADE20K palette (the contents of the
+  reference's ``data/color150.mat``, ``assets/ade20k.py``); any other class
+  count takes the HSV wheel of
+  :func:`fovealseg_torch.utils.visuals.generate_colormap_colors`.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+
 import numpy as np
 
-# 150x3 uint8 RGB palette (the 'colors' array of color150.mat).
-ADE20K_COLORS_TABLE = (
-    (120, 120, 120), (180, 120, 120), (6, 230, 230), (80, 50, 50), (4, 200, 3),
-    (120, 120, 80), (140, 140, 140), (204, 5, 255), (230, 230, 230), (4, 250, 7),
-    (224, 5, 255), (235, 255, 7), (150, 5, 61), (120, 120, 70), (8, 255, 51),
-    (255, 6, 82), (143, 255, 140), (204, 255, 4), (255, 51, 7), (204, 70, 3),
-    (0, 102, 200), (61, 230, 250), (255, 6, 51), (11, 102, 255), (255, 7, 71),
-    (255, 9, 224), (9, 7, 230), (220, 220, 220), (255, 9, 92), (112, 9, 255),
-    (8, 255, 214), (7, 255, 224), (255, 184, 6), (10, 255, 71), (255, 41, 10),
-    (7, 255, 255), (224, 255, 8), (102, 8, 255), (255, 61, 6), (255, 194, 7),
-    (255, 122, 8), (0, 255, 20), (255, 8, 41), (255, 5, 153), (6, 51, 255),
-    (235, 12, 255), (160, 150, 20), (0, 163, 255), (140, 140, 140), (250, 10, 15),
-    (20, 255, 0), (31, 255, 0), (255, 31, 0), (255, 224, 0), (153, 255, 0),
-    (0, 0, 255), (255, 71, 0), (0, 235, 255), (0, 173, 255), (31, 0, 255),
-    (11, 200, 200), (255, 82, 0), (0, 255, 245), (0, 61, 255), (0, 255, 112),
-    (0, 255, 133), (255, 0, 0), (255, 163, 0), (255, 102, 0), (194, 255, 0),
-    (0, 143, 255), (51, 255, 0), (0, 82, 255), (0, 255, 41), (0, 255, 173),
-    (10, 0, 255), (173, 255, 0), (0, 255, 153), (255, 92, 0), (255, 0, 255),
-    (255, 0, 245), (255, 0, 102), (255, 173, 0), (255, 0, 20), (255, 184, 184),
-    (0, 31, 255), (0, 255, 61), (0, 71, 255), (255, 0, 204), (0, 255, 194),
-    (0, 255, 82), (0, 10, 255), (0, 112, 255), (51, 0, 255), (0, 194, 255),
-    (0, 122, 255), (0, 255, 163), (255, 153, 0), (0, 255, 10), (255, 112, 0),
-    (143, 255, 0), (82, 0, 255), (163, 255, 0), (255, 235, 0), (8, 184, 170),
-    (133, 0, 255), (0, 255, 92), (184, 0, 255), (255, 0, 31), (0, 184, 255),
-    (0, 214, 255), (255, 0, 112), (92, 255, 0), (0, 224, 255), (112, 224, 255),
-    (70, 184, 160), (163, 0, 255), (153, 0, 255), (71, 255, 0), (255, 0, 163),
-    (255, 204, 0), (255, 0, 143), (0, 255, 235), (133, 255, 0), (255, 0, 235),
-    (245, 0, 255), (255, 0, 122), (255, 245, 0), (10, 190, 212), (214, 255, 0),
-    (0, 204, 255), (20, 0, 255), (255, 255, 0), (0, 153, 255), (0, 41, 255),
-    (0, 255, 204), (41, 0, 255), (41, 255, 0), (173, 0, 255), (0, 245, 255),
-    (71, 0, 255), (122, 0, 255), (0, 255, 184), (0, 92, 255), (184, 255, 0),
-    (0, 133, 255), (255, 214, 0), (25, 194, 194), (102, 255, 0), (92, 0, 255),
-)
+
+def load_object_info(csv_path: str | None, num_class: int = 150) -> list[dict]:
+    """Class metadata rows [{idx, name, ratio}]; synthesized when absent."""
+    if csv_path and os.path.exists(csv_path):
+        rows = []
+        with open(csv_path) as f:
+            for rec in csv.DictReader(f):
+                rows.append({
+                    "idx": int(rec.get("Idx", len(rows) + 1)),
+                    "name": (rec.get("Name") or "").split(";")[0].strip(),
+                    "ratio": float(rec.get("Ratio", 0.0) or 0.0),
+                })
+        if rows:
+            return rows
+    if num_class == 150:
+        from fovealseg_torch.assets.ade20k import ADE20K_NAMES, ADE20K_RATIO
+
+        return [
+            {"idx": i + 1, "name": ADE20K_NAMES[i].split(";")[0].strip(),
+             "ratio": ADE20K_RATIO[i]}
+            for i in range(150)
+        ]
+    return [{"idx": i + 1, "name": f"class_{i}", "ratio": 0.0} for i in range(num_class)]
+
+
+def class_names(csv_path: str | None, num_class: int = 150) -> list[str]:
+    return [r["name"] for r in load_object_info(csv_path, num_class)]
 
 
 def class_palette(num_class: int = 150) -> np.ndarray:
     """[num_class, 3] uint8 palette."""
     if num_class == 150:
-        return np.asarray(ADE20K_COLORS_TABLE, dtype=np.uint8)
+        from fovealseg_torch.assets.ade20k import ade20k_colors
+
+        return ade20k_colors()
     from fovealseg_torch.utils.visuals import generate_colormap_colors
 
     return np.asarray(generate_colormap_colors(num_class), dtype=np.uint8)

@@ -8,7 +8,8 @@
   0``): each rank serves its contiguous block of every micro-batch, and
   eval-mode BN makes a frame's labels independent of its neighbours;
 * the refusals: a batch or micro-batch that does not divide by the ranks,
-  and a ``_nonsyn`` saliency net (batch statistics at serving).
+  and a ``_nonsyn`` saliency net (batch statistics at serving);
+* ``--data``: two ranks train on a cooked LVIS set.
 """
 
 import os
@@ -71,6 +72,34 @@ def test_train_cli_two_ranks_write_once_and_resume(tmp_path, monkeypatch):
         assert len(fh.read().strip().splitlines()) == 1 + 4
     assert os.path.exists(os.path.join(d, "train_state_epoch_2.pth"))
     shutil.rmtree(d)  # ~1 GB of the tiny model's checkpoints
+
+
+def test_train_cli_two_ranks_on_cooked_lvis(tmp_path, monkeypatch):
+    """``--gpus 0-1 --data``: two ranks train on a cooked LVIS set at the
+    global batch (8 samples at 2 x 2: two steps per epoch), each reading
+    its block of every global batch (``DatasetLVIS.batches(rank=,
+    world=)``, held to the JAX reader in ``test_torch_port_data.py``)."""
+    from fovealseg_torch.cli import cook
+    from torch_port_files import lvis_json
+
+    stub = tmp_path / "stub"
+    (stub / "tensorflow").mkdir(parents=True)
+    (stub / "tensorflow" / "__init__.py").write_text("raise ImportError('not for this test')\n")
+    monkeypatch.syspath_prepend(str(stub))
+    j, root = lvis_json(str(tmp_path / "l.json")), tmp_path / "cook"
+    for part, n in (("train", 8), ("valid", 20)):
+        assert cook.main(["lvis", f"--{part}-json", j, "--dataset-partition", part,
+                          "--out", str(root), "--sample-num", str(n), "--canvas", "64"]) == 0
+    d = str(tmp_path / "run")
+    ranks = train_cli.main(TRAIN_FLAGS + ["--data", str(root)] + TINY + [
+        "TRAIN.batch_size_per_gpu", "2", "TRAIN.num_epoch", "1", "TRAIN.eval_per_epoch", "100",
+        "DATASET.dataset_marker_train", "sp8", "DATASET.dataset_marker_valid", "sp4", "DIR", d])
+    assert [r["step"] for r in ranks] == [2, 2]
+    with open(os.path.join(d, "train.log")) as fh:
+        log = fh.read()
+    assert "LVIS cooked data: 8 train / 4 val" in log
+    assert "data parallel: 2 ranks over gloo, global batch 4" in log
+    shutil.rmtree(d)
 
 
 def _masks(d):

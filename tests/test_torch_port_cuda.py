@@ -728,3 +728,83 @@ def _float64_nets(model):
         if hasattr(sub, "compute_dtype"):
             sub.compute_dtype = torch.float64
     return m
+
+
+def test_odgt_record_kernels_bit_equal_to_plain(dev):
+    """One ODGT-shaped record on the card (375x501 canvas, odd H*W, two
+    pyramid levels, 150 classes, the label round trip on): every K2 and K5
+    launch of ``eval_odgt.evaluate_record`` (K5 at C = 150 and C = 1) is
+    bit-equal to its plain version on the inputs it was given, and the
+    record's labels equal the host's from the same weights where the host's
+    scores have a top-two margin above 1e-4."""
+    from fovealseg_torch.cli import eval_odgt
+    from fovealseg_torch.core import unwarp
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+    from fovealseg_torch.models.layers import init_weights
+
+    cfg = DeformConfig(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16),
+                       gaussian_radius=5, num_class=150, arch_encoder="hrnetv2_nodownsp_tiny")
+    rng = np.random.default_rng(5)
+    rec = {"img_data": [rng.normal(size=(1, h, w, 3)).astype(np.float32)
+                        for h, w in ((288, 384), (384, 512))],
+           "seg_label": rng.integers(-1, 150, (1, 47, 63)).repeat(8, 1).repeat(8, 2)[:, :375,
+                                                                                     :501]}
+    calls = {"nearest_payload_packed": [], "row_gather": []}
+    saved = {name: getattr(unwarp, name) for name in calls}
+
+    def recording(name):
+        def call(*args):
+            calls[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            return saved[name](*args)
+        return call
+
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        model = init_weights(DeformSegmentation(cfg, device=d), torch.Generator().manual_seed(3))
+        try:
+            for name in calls:
+                setattr(unwarp, name, recording(name) if d.type == "cuda" else saved[name])
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                res = eval_odgt.evaluate_record(model, rec, (0.45, 0.55), d, rev_y=True)
+        finally:
+            for name, fn in saved.items():
+                setattr(unwarp, name, fn)
+        outs[d.type] = {k: v.cpu() for k, v in res.items()}
+    assert len(calls["nearest_payload_packed"]) == 4 and len(calls["row_gather"]) == 4
+    assert sorted(a[0].shape[-1] for a in calls["row_gather"]) == [1, 1, 150, 150]
+    for args in calls["nearest_payload_packed"]:
+        got = jfa.nearest_payload_packed(*args)
+        torch.testing.assert_close(got, jfa.nearest_payload_packed_plain(*args), rtol=0, atol=0)
+        assert args[0].shape == (1, 375, 501)
+    for args in calls["row_gather"]:
+        got = row_gather(*args)
+        assert torch.equal(got.view(torch.int32), row_gather_plain(*args).view(torch.int32))
+    card, host = outs["cuda"], outs["cpu"]
+    top2 = torch.sort(host["scores"][0], dim=-1).values[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 1e-4
+    assert decided.float().mean() > 0.5
+    assert torch.equal(card["pred"][decided], host["pred"][decided])
+
+
+def test_train_cli_on_cooked_lvis_on_card(dev, tmp_path):
+    """``cli.train --data``: one step on a cooked LVIS set on the card (3
+    samples at batch 2 reconcile ``TRAIN.epoch_iters`` to 1), the batches
+    read into pinned memory and copied without blocking."""
+    from fovealseg_torch.cli import cook
+    from fovealseg_torch.cli import train as train_cli
+    from torch_port_files import lvis_json
+
+    j, root = lvis_json(str(tmp_path / "l.json")), tmp_path / "cook"
+    for part, n in (("train", 3), ("valid", 10)):
+        assert cook.main(["lvis", f"--{part}-json", j, "--dataset-partition", part,
+                          "--out", str(root), "--sample-num", str(n), "--canvas", "64"]) == 0
+    state = train_cli.main([
+        "--cfg", "fovealseg_torch/configs/deform.yaml", "--canvas", "64", "--data", str(root),
+        "TRAIN.task_input_size", "(16,16)", "TRAIN.saliency_input_size", "(16,16)",
+        "MODEL.gaussian_radius", "5", "MODEL.arch_encoder", "hrnetv2_nodownsp_tiny",
+        "TRAIN.batch_size_per_gpu", "2", "TRAIN.num_epoch", "1", "TPU.compute_dtype", "float32",
+        "DATASET.dataset_marker_train", "sp3", "DATASET.dataset_marker_valid", "sp2",
+        "DIR", str(tmp_path / "run")])
+    assert state.step == 1
+    assert next(state.model.parameters()).device.type == "cuda"
+    assert (tmp_path / "run" / "encoder_epoch_1.pth").exists()

@@ -101,6 +101,19 @@ def test_intersection_and_union(metric_inputs):
     assert inter.sum() > 0 and union.shape == (51,)
 
 
+def test_intersection_and_union_negative_predictions(metric_inputs):
+    """A -1 predicted on a labelled pixel (the label round trip carries the
+    ignore id) counts as class 0, as ``jnp.bincount`` clips it: exactly."""
+    labels, _, preds = metric_inputs
+    preds = np.where(np.random.default_rng(2).uniform(size=preds.shape) < 0.1, -1, preds)
+    inter, union = metrics.intersection_and_union(torch.from_numpy(preds),
+                                                  torch.from_numpy(labels), 51)
+    jinter, junion = jmetrics.intersection_and_union(jnp.asarray(preds), jnp.asarray(labels), 51)
+    np.testing.assert_array_equal(inter.numpy(), np.asarray(jinter))
+    np.testing.assert_array_equal(union.numpy(), np.asarray(junion))
+    assert ((preds == -1) & (labels >= 0)).any()
+
+
 def test_confusion_matrix(metric_inputs):
     """Integer counts, exactly."""
     labels, _, preds = metric_inputs
@@ -562,9 +575,9 @@ def test_cli_refuses(tmp_path, opt):
     args = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--device", "cpu", "--canvas", "64",
             "--num-batches", "1"]
     if opt == "--data":
-        args += ["--data", str(tmp_path)]
-        opt = []
-    elif opt == "resume":
+        _cli_on_cooked_lvis(tmp_path, args)
+        return
+    if opt == "resume":
         # TRAIN.start_epoch resumes from the port's training checkpoint in
         # DIR (test_torch_port_train_cli.py); an empty DIR has none to load
         with pytest.raises(FileNotFoundError, match="saliency_epoch_3.pth"):
@@ -573,6 +586,40 @@ def test_cli_refuses(tmp_path, opt):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP|unset|JAX"):
         port_cli.main(args + TINY_OPTS + ["VAL.batch_size", "1"] + opt)
+
+
+def _cli_on_cooked_lvis(tmp_path, args):
+    """``--data <cook root>`` (an id of ``test_cli_refuses`` from when the
+    CLI refused it): the port's reader gives the JAX reader's batches bit for
+    bit, and the CLI evaluates them (labels built from those batches)."""
+    from fovealseg_torch.cli import cook as port_cook
+    from fovealseg_torch.cli import eval as port_cli
+    from fovealseg_tpu.data.lvis import DatasetLVIS as JaxLVIS
+    from tests.test_torch_port_data import assert_same
+    from torch_port_files import lvis_json
+
+    root = tmp_path / "cook"
+    assert port_cook.main(["lvis", "--valid-json", lvis_json(str(tmp_path / "l.json")),
+                           "--dataset-partition", "valid", "--out", str(root),
+                           "--sample-num", "15", "--canvas", "64"]) == 0
+    cfg = _eval_cfg(tmp_path / "unused")
+    cfg.VAL.batch_size = 1
+    cfg.DATASET.dataset_marker_valid = "sp3"
+    want = list(JaxLVIS(str(root / "valid"), None, canvas=64, marker="sp3").batches(
+        1, shuffle=False))
+    got = list(port_cli.cooked_stream(cfg, str(root), None, 2, canvas=64))
+    assert len(want) == 3
+    assert_same(got, want[:2], "cooked batches")
+    gts = []
+    result = port_cli.main(args[:-1] + ["2", "--data", str(root)] + TINY_OPTS
+                           + ["VAL.batch_size", "1", "DATASET.dataset_marker_valid", "sp3",
+                              "DIR", str(tmp_path / "run")],
+                           on_batch=lambda out, pred, gt, acc: gts.append(gt.numpy()))
+    assert result["num_batches"] == 2 and 0.0 <= result["mean_iou"] <= 1.0
+    for g, b in zip(gts, want):
+        cls = b["cls_label"].reshape(-1)
+        ref = (b["seg_label"] * cls[:, None, None] + (1 - b["seg_label"]) * 50).astype(np.int64)
+        np.testing.assert_array_equal(g, ref)
 
 
 def test_cli_missing_weight_file_raises(tmp_path):

@@ -35,13 +35,18 @@ def test_port_sources_exist():
                 ("core", "warp.py"), ("core", "grid.py"), ("core", "metrics.py"),
                 ("core", "edges.py"), ("data", "synthetic.py"), ("native", "spatial.py"),
                 ("native", "interp2d.py"), ("utils", "visuals.py"), ("cli", "eval.py"),
-                ("models", "segformer.py"), ("models", "deeplab.py"), ("models", "saliency.py")):
+                ("models", "segformer.py"), ("models", "deeplab.py"), ("models", "saliency.py"),
+                ("data", "loader.py"), ("data", "lvis.py"), ("data", "cityscapes.py"),
+                ("data", "aria_adt.py"), ("data", "odgt.py"), ("cli", "cook.py"),
+                ("cli", "eval_odgt.py"), ("models", "segmentation_module.py"),
+                ("assets", "ade20k.py"), ("utils", "ade.py")):
         assert os.path.join("fovealseg_torch", *mod) in names
     for src in ("jfa.cu", "gather.cu"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
-    assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "configs", "deform.yaml"))
+    for cfg in ("deform.yaml", "ade20k.yaml"):
+        assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "configs", cfg))
     assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "native", "spatial.cpp"))
-    assert len(names) > 30
+    assert len(names) > 60
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))

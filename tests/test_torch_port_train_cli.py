@@ -163,15 +163,58 @@ def test_intrinsic_only_updates_no_parameter(tmp_path):
     assert any(not torch.equal(got[k], ref[k]) for k in ref if "running_mean" in k)
 
 
+def cook_lvis(tmp_path, n_train, **json_kw):
+    """A cooked LVIS root on a 64 canvas: ``n_train`` train samples (marker
+    ``sp{n_train}``) and 2 valid (marker ``sp2``); ``json_kw`` goes to
+    ``lvis_json``."""
+    from fovealseg_torch.cli import cook
+    from torch_port_files import lvis_json
+
+    j, root = lvis_json(str(tmp_path / "l.json"), **json_kw), tmp_path / "cook"
+    for part, n in (("train", n_train), ("valid", 10)):
+        assert cook.main(["lvis", f"--{part}-json", j, "--dataset-partition", part,
+                          "--out", str(root), "--sample-num", str(n), "--canvas", "64"]) == 0
+    return ["--data", str(root)], ["DATASET.dataset_marker_train", f"sp{n_train}",
+                                   "DATASET.dataset_marker_valid", "sp2"]
+
+
 @pytest.mark.parametrize("extra", [["--gpus", "0,1", "--backend", "nccl"],
                                    ["TPU.mesh_shape", "(2,2)"],
                                    ["TPU.quantize", "int8"], ["TPU.conv_pack", "True"],
-                                   ["--data", "/nonexistent"]])
+                                   ["--data", "cooked"], ["--data", "too small"],
+                                   ["--data", "class out of range"]])
 def test_train_cli_refuses_what_it_does_not_run(tmp_path, extra):
     """Unported options raise NotImplementedError. ``--gpus`` naming two
     devices trains data-parallel (``tests/test_torch_parallel_cli.py``);
     what it refuses is NCCL between CPU ranks, a ValueError raised before
-    any rank starts."""
+    any rank starts. ``--data`` (refused until the readers were ported)
+    trains on a cooked set: 3 samples at batch 2 reconcile
+    ``TRAIN.epoch_iters`` 2 to one step; a set smaller than the global batch
+    exits, as the JAX CLI does; a monitored LVIS id whose training id does
+    not fit the 51 classes raises before the model is built."""
+    if extra[0] == "--data":
+        if extra[1] == "class out of range":
+            from fovealseg_torch.data.lvis import CIDS_MONITORED, convert_index
+
+            wide = next(c for c in CIDS_MONITORED if convert_index(c) > 50)
+            flags, opts = cook_lvis(tmp_path, 3, cids=[wide])
+            args = flags + FLAGS + TINY + ["DIR", str(tmp_path / "run"), *opts]
+            with pytest.raises(ValueError, match=rf"training ids \[{convert_index(wide)}\] do "
+                                                 r"not fit DATASET.num_class=51"):
+                train_cli.main(args)
+            assert not os.path.exists(tmp_path / "run" / "decoder_epoch_1.pth")
+            return
+        flags, opts = cook_lvis(tmp_path, 3 if extra[1] == "cooked" else 1)
+        args = flags + FLAGS + TINY + ["DIR", str(tmp_path / "run"), "TRAIN.num_epoch", "1",
+                                       *opts]
+        if extra[1] == "cooked":
+            state = train_cli.main(args)
+            assert state.step == 1
+            assert os.path.exists(tmp_path / "run" / "decoder_epoch_1.pth")
+        else:
+            with pytest.raises(SystemExit, match="too small for the global batch"):
+                train_cli.main(args)
+        return
     flags, opts = (extra, []) if extra[0].startswith("--") else ([], extra)
     with pytest.raises(ValueError if "--backend" in extra else NotImplementedError):
         train_cli.main(flags + FLAGS + TINY + ["DIR", str(tmp_path), *opts])
