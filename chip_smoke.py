@@ -99,6 +99,27 @@ Phases (any failure exits non-zero):
         labels with the plain K2 and K5 bit-equal to the kernels', the
         device time per scale under torch.profiler, the largest device
         round count, peak memory, and ``--no-deform`` on one record;
+     h. the 2-D mesh and spatial serving: (a) the flagship on
+        ``TPU.mesh_shape (2,2)``, four gloo ranks on the one card, one
+        default and one ``loss_at_high_res`` 'nearest' SGD step on a global
+        b8 batch (dropout on, the global batch's mask), each against the
+        one-process step on the same batch, TF32 off on both sides: in f32
+        (metrics rtol 1e-4, the encoder's and decoder's parameters rtol
+        2e-3 atol 2e-5, each group's update norm within 10%) and as its
+        float64 witness (``float64_nets``), which holds the CPU test's
+        tolerances and more (every parameter and BN statistic rtol 2e-3
+        atol 2e-5, each group's update within 1e-5 of its norm in direction
+        and size); one process's f32 update against its f64 one; the
+        'nearest' steps' K2, K5 and K5b counted in each rank just after
+        them and held on their own inputs; each rank's parameter and Adam
+        moment bytes against one process's, wall and device-busy ms and
+        kernels per f32 step; (b) ``--spatial 2`` (two gloo ranks on the
+        card), b1 f32: per frame the wall, device busy, kernels and
+        exchanges beside one process's and phase 3a's b1, K1 held on rank
+        0's own inputs, labels equal to one process's where its scores
+        decide them; (c) the serving CLI with ``--mesh 2 --backend gloo``
+        and ``resnet18_nonsyn`` (b8) against one process's model on the
+        same frames: at most 100 decided pixels differ;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -113,6 +134,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SEED = 304
@@ -2277,6 +2299,548 @@ def real_data_path(card, device, out_dir, synthetic_sps):
                                                            "odgt_eval": odgt_counts}, numbers
 
 
+# --------------------------------------------------------------- phase 3h
+
+# SGD: an update's norm then measures its gradient (Adam's first update does not)
+MESH_OPTS = ("TRAIN.optim", "sgd")
+MESH_HIGH_RES_KERNELS = ("jfa_relpay", "row_gather", "row_gather_backward")
+SPATIAL_FRAMES = 6  # timed b1 frames per spatial rank
+# decided pixels of (c) that may differ from one process's (2 b8 batches,
+# 6,553,600 decided pixels; 10 differed on the H100)
+NONSYN_FLIPS = 100
+SERVE_F32_OPTS = ["MODEL.gaussian_radius", "45", "TRAIN.saliency_input_size", "(80,80)",
+                  "TRAIN.task_input_size", "(80,80)", "TPU.compute_dtype", "float32"]
+
+
+def _ieee_convs():
+    """Full f32 convs (no TF32), for a comparison across conv shapes."""
+    import torch
+
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+
+
+# the default step in the CPU test's configuration: with the learned warp the
+# warped labels are truncated bilinear samples of the mask, and a grid that
+# moves by its last bits between two f32 computations flips some of them;
+# 'BI' resizes the labels instead, and the four groups still train through
+# the joint edge loss
+MESH_DEFAULT = ("MODEL.uniform_sample", "BI", "TRAIN.deform_joint_loss", "True")
+
+
+def _mesh_case(label):
+    """'default' (the CPU test's configuration) or 'nearest' (the learned
+    warp with ``loss_at_high_res``: the labels are the full-resolution mask,
+    and the inverse warp runs K2, K5 and K5b), SGD; a label ending in '_f64'
+    is its step with float64 sub-networks."""
+    extra = DP_HIGH_RES if label.startswith("nearest") else MESH_DEFAULT
+    return train_cfg(*TRAIN_OPTS, *MESH_OPTS, *extra)
+
+
+# phase 3h (a)'s steps: the f32 steps are timed; the '_f64' steps, their
+# float64 witnesses (``float64_nets``: the sub-networks compute in f64, the
+# geometry and the losses in f32, K2, K5 and K5b launch as in f32), hold the
+# gradients to the CPU test's tolerances and more, out of f32's rounding
+MESH_STEPS = ("default", "nearest", "default_f64", "nearest_f64")
+
+
+def _mesh_bases(device) -> dict:
+    """The flagship of each phase 3h (a) configuration ('default',
+    'nearest'), built once from the seed; each step takes a copy."""
+    import torch
+
+    out = {}
+    for name in ("default", "nearest"):
+        cfg = _mesh_case(name)
+        out[name] = flagship(torch.float32, device, loss_at_high_res=cfg.MODEL.loss_at_high_res,
+                             rev_deform_interp=cfg.MODEL.rev_deform_interp,
+                             arch_encoder=cfg.MODEL.arch_encoder, fc_dim=cfg.MODEL.fc_dim,
+                             saliency_net=cfg.MODEL.saliency_net)
+    return out
+
+
+def _mesh_state(bases, label, dropout=True):
+    """The state of a phase 3h (a) step: a copy of its configuration's base
+    model (``float64_nets`` for an '_f64' label)."""
+    import copy
+
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import create_optimizer
+
+    cfg = _mesh_case(label)
+    base = bases[label.split("_")[0]]
+    model = float64_nets(base) if label.endswith("_f64") else copy.deepcopy(base)
+    if not dropout:
+        _no_dropout(model)
+    return cfg, S.init_state(model, create_optimizer(cfg, model), SEED)
+
+
+def _param_bytes(model) -> dict:
+    """Parameter bytes of ``model``; Adam's two moments hold twice as many."""
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    wide = sum(p.numel() * p.element_size() for p in model.parameters()
+               if getattr(p, "model_shard", None) is not None)
+    return {"param_bytes": n, "adam_moment_bytes": 2 * n, "sharded_param_bytes": wide}
+
+
+def _timed_step(state, step, batch, profiled: bool) -> dict:
+    """One step on the host clock (ending in a synchronise); with
+    ``profiled``, under torch.profiler's device tracing (device busy,
+    kernels; the wall then includes the tracing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext() \
+            as prof:
+        t = time.perf_counter()
+        mets = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    if not profiled:
+        return {"wall_ms": wall, "mets": mets}
+    kernels = device_kernels(prof)
+    return {"profiled_wall_ms": wall, "mets": mets, "kernels_per_step": len(kernels),
+            "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+
+
+def _host_sd(model) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def mesh_2d_one_process(device, bases, labels) -> dict:
+    """Phase 3h (a)'s references: for each of ``labels`` (of ``MESH_STEPS``,
+    and 'default_nodrop' and 'default_f64_nodrop': one process's f32
+    rounding against f64, dropout off) the flagship's one-process SGD step
+    on the global b8 batch (TF32 off), its metrics, updated state dict (on
+    the host) and seconds; an f32 step's wall, then a second step under
+    torch.profiler (device busy, kernels); with 'default', 'old': the
+    weights before."""
+    import torch
+
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.loop import batch_controls
+    from fovealseg_torch.train.optim import make_stage_schedules
+
+    _ieee_convs()
+    (full,) = _batches(device, 1, SEED + 60)
+    out = {}
+    for label in labels:
+        t = time.perf_counter()
+        cfg, state = _mesh_state(bases, label.removesuffix("_nodrop"),
+                                 dropout=not label.endswith("_nodrop"))
+        step = S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg))
+        if label == "default":
+            out["old"] = _host_sd(state.model)
+        batch = {**full, **batch_controls(cfg, 1, 0, state.pool_rng)}
+        r = _timed_step(state, step, batch, False)
+        res = {"wall_ms": r["wall_ms"], "mets": {k: float(v) for k, v in r["mets"].items()},
+               "sd": _host_sd(state.model), **_param_bytes(state.model)}
+        if label in ("default", "nearest"):
+            res.update({k: v for k, v in _timed_step(state, step, batch, True).items()
+                        if k != "mets"})
+        out[label] = res
+        del state, step
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _wait_for(path, fut) -> None:
+    """Until the file ``path`` exists (or the future ``fut`` has ended)."""
+    import os
+
+    while not os.path.exists(path) and (fut is None or not fut.done()):
+        time.sleep(0.2)
+
+
+def mesh_2d_rank(rank, out_dir: str):
+    """Phase 3h (a), one of four gloo ranks on the one card: the flagship on
+    the 2 x 2 mesh, TF32 off, from the same weights and global b8 batch as
+    the one-process references. The f32 steps wait for the file 'go' in
+    ``out_dir`` (the timed references run alone first), and rank 0 writes
+    'timed' once every rank has taken them (the f64 references then run
+    beside the f64 steps). For each of ``MESH_STEPS``, one step (the f32
+    ones under torch.profiler's device tracing): its kernel counts, read in
+    the rank just after it, K2, K5 and K5b held on the step's own inputs
+    ('nearest'), the metrics, the gathered state dict (rank 0 returns it),
+    the wall, device busy, kernels and seconds."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from fovealseg_torch.parallel.mesh import (gather_state_2d, make_mesh_2d, shard_batch,
+                                               shard_model_2d)
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.loop import batch_controls
+    from fovealseg_torch.train.optim import create_optimizer, make_stage_schedules
+
+    _ieee_convs()
+    device = rank.device
+    mesh = make_mesh_2d(2, 2)
+    (full,) = _batches(device, 1, SEED + 60)
+    bases = _mesh_bases(device)
+    _wait_for(os.path.join(out_dir, "go"), None)
+    dist.barrier()  # every rank has built its bases: the first timed step starts together
+    out = {"place": (mesh.data_index, mesh.model_index)}
+    for label in MESH_STEPS:
+        if label == "default_f64":  # the f32 steps are done on every rank
+            dist.barrier()
+            if rank.rank == 0:
+                open(os.path.join(out_dir, "timed"), "w").close()
+        t = time.perf_counter()
+        kernels = MESH_HIGH_RES_KERNELS if label.startswith("nearest") else ()
+        cfg, state = _mesh_state(bases, label)
+        res = {"sharded_layers": shard_model_2d(state.model, mesh)}
+        state.optimizer = create_optimizer(cfg, state.model)
+        state.mesh = mesh
+        step = S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg),
+                                 mesh=mesh)
+        batch = shard_batch({**full, **batch_controls(cfg, 1, 0, state.pool_rng)},
+                            mesh.data_index, mesh.dp)
+        torch.cuda.synchronize()
+        reset_counts()
+        with kernel_inputs() as seen:
+            r = _timed_step(state, step, batch, not label.endswith("_f64"))
+        res["counts"] = read_counts()
+        res["mets"] = {k: float(v) for k, v in r.pop("mets").items()}
+        res.update(r)
+        if kernels:
+            hold_on_path_inputs(f"2-D rank {rank.rank} '{label}' step", seen, kernels)
+        del seen
+        sd = gather_state_2d(state.model, None, mesh)[0]
+        res["sd"] = sd if rank.rank == 0 else None
+        res.update(_param_bytes(state.model))
+        out[label] = res
+        del state, step
+        torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t
+    return out
+
+
+# the float64 witnesses' limits on each group's update: its direction
+# (|du - dr| / |dr|) and its norm (|du| / |dr| - 1); read on the 2 x 2 mesh on
+# the H100: at most 4.9e-7 and 2.6e-7 (f32: up to 0.23 and 0.05)
+F64_UPDATE_LIMIT = 1e-5
+
+
+def _update(got: dict, ref: dict, old: dict, keys, device) -> tuple[float, float]:
+    """(direction, norm ratio) of the update ``got - old`` against ``ref -
+    old``, in f64 on ``device``."""
+    import torch
+
+    acc = torch.zeros(3, dtype=torch.float64, device=device)
+    for k in keys:
+        o = old[k].to(device, torch.float64)
+        du, dr = got[k].to(device, torch.float64) - o, ref[k].to(device, torch.float64) - o
+        acc += torch.stack([(du - dr).square().sum(), du.square().sum(), dr.square().sum()])
+    diff, norm, scale = acc.sqrt().tolist()
+    scale = max(scale, 1e-300)
+    return diff / scale, norm / scale
+
+
+def _held_2d(got: dict, ref: dict, old: dict, f64: bool, device) -> dict:
+    """The 2-D step against the one-process step: the failures and the
+    numbers. Both: the metrics within rtol 1e-4. A float64 witness
+    (``f64``) is held to the CPU test's tolerances and more: every
+    parameter and BN statistic within rtol 2e-3 and atol 2e-5, and each
+    group's update within ``F64_UPDATE_LIMIT`` in direction and norm. An
+    f32 step: the encoder's and decoder's parameters within the CPU test's
+    tolerances and each group's update norm within 10% (a gradient off by a
+    factor of dp or mp, 2 here, moves it by 50% or 100%); its update
+    directions are printed. At the flagship's random init f32 rounding
+    alone moves the one-process update's direction by a third from the f64
+    one (the 'conditioning' numbers): the class branch's upstream gradient
+    is nearly the same for every sample and pixel, BN's backward cancels
+    most of it, and a data block's BN sums round unlike the global batch's."""
+    import torch
+
+    from fovealseg_torch.train.optim import GROUPS
+
+    bad = []
+    worst = {"mets_rel": 0.0, "params_excess": {}, "stats_excess": {}, "direction": {},
+             "norm_ratio": {}}
+    for k, v in ref["mets"].items():
+        rel = abs(got["mets"][k] - v) / max(abs(v), 1e-30)
+        worst["mets_rel"] = max(worst["mets_rel"], rel)
+        if rel > 1e-4:
+            bad.append(k)
+
+    def excess(ks):
+        out = torch.full((), float("-inf"), dtype=torch.float64, device=device)
+        for k in ks:
+            a = got["sd"][k].to(device, torch.float64)
+            b = ref["sd"][k].to(device, torch.float64)
+            out = torch.maximum(out, ((a - b).abs() - (2e-5 + 2e-3 * b.abs())).max())
+        return float(out)
+
+    for name, sub, _, _ in GROUPS:
+        keys = [k for k in ref["sd"] if k.startswith(sub + ".")
+                and ref["sd"][k].is_floating_point()]
+        trained = [k for k in keys if "running_" not in k]
+        worst["params_excess"][name] = excess(trained)
+        worst["stats_excess"][name] = excess([k for k in keys if "running_" in k])
+        direction, ratio = _update(got["sd"], ref["sd"], old, trained, device)
+        worst["direction"][name], worst["norm_ratio"][name] = direction, ratio
+        if f64:
+            if worst["params_excess"][name] > 0 or worst["stats_excess"][name] > 0:
+                bad.append(f"{name} parameters or BN statistics")
+            if direction > F64_UPDATE_LIMIT or abs(ratio - 1.0) > F64_UPDATE_LIMIT:
+                bad.append(f"{name} update")
+        else:
+            if worst["params_excess"][name] > 0 and name in ("encoder", "decoder"):
+                bad.append(f"{name} parameters")
+            if abs(ratio - 1.0) > 0.1:
+                bad.append(f"{name} update norm")
+    return {"failures": bad[:20], **worst}
+
+
+def mesh_2d_path(card, device, out_dir) -> tuple[dict, dict]:
+    """Phase 3h (a): the timed f32 references alone, the ranks' f32 steps,
+    then the f64 references beside the ranks' f64 steps."""
+    import os
+
+    import torch
+
+    from fovealseg_torch.parallel.launch import run_workers
+    from fovealseg_torch.train.optim import GROUPS
+
+    t = time.perf_counter()
+    prev = torch.backends.cudnn.conv.fp32_precision
+    with ThreadPoolExecutor(1) as pool:
+        # the ranks start up while the timed references run
+        ranks = pool.submit(run_workers, 4, mesh_2d_rank, out_dir, device=[0, 0, 0, 0],
+                            backend="gloo", timeout=600, echo=True)
+        try:
+            bases = _mesh_bases(device)
+            ref = mesh_2d_one_process(device, bases, ("default", "nearest"))
+            open(os.path.join(out_dir, "go"), "w").close()
+            t_timed = time.perf_counter() - t
+            _wait_for(os.path.join(out_dir, "timed"), ranks)
+            t_ranks = time.perf_counter() - t
+            f64 = mesh_2d_one_process(device, bases, ("default_f64", "nearest_f64",
+                                                      "default_nodrop", "default_f64_nodrop"))
+            del bases
+            ref.update(f64)
+        finally:
+            torch.backends.cudnn.conv.fp32_precision = prev
+            open(os.path.join(out_dir, "go"), "w").close()
+        ranks = ranks.result()
+    seconds = {"f32_references": t_timed, "f32_steps_done": t_ranks,
+               "total": time.perf_counter() - t,
+               "references": {k: v["seconds"] for k, v in ref.items() if k != "old"},
+               "rank0_steps": {k: ranks[0][k]["seconds"] for k in MESH_STEPS}}
+    log(f"3h (a) took {seconds['total']:.1f} s: {json.dumps(seconds)}")
+    t = time.perf_counter()
+    old = ref.pop("old")
+    f32, f64 = ref.pop("default_nodrop")["sd"], ref.pop("default_f64_nodrop")["sd"]
+    conditioning = {}
+    for name, sub, _, _ in GROUPS:
+        keys = [k for k in old if k.startswith(sub + ".") and old[k].is_floating_point()
+                and "running_" not in k]
+        conditioning[name] = dict(zip(("direction", "norm_ratio"),
+                                      _update(f32, f64, old, keys, device)))
+    log(f"one process, default step with dropout off, f32 against float64 sub-networks: "
+        f"{json.dumps(conditioning)}")
+    res, counts = {"conditioning_f32_vs_f64": conditioning}, {}
+    for label in MESH_STEPS:
+        r0, one = ranks[0][label], ref[label]
+        held = _held_2d(r0, one, old, label.endswith("_f64"), device)
+        same = all(r[label]["mets"] == r0["mets"] for r in ranks)
+        n = {name: sum(r[label]["counts"][name] for r in ranks) for name in r0["counts"]}
+        expect = dict.fromkeys(n, 0)
+        if label.startswith("nearest"):
+            expect.update(dict.fromkeys(MESH_HIGH_RES_KERNELS, 4))  # once per rank
+        check_counts(f"2-D '{label}' step, 4 ranks", n, expect)
+        counts[f"mesh2d_{label}"] = n
+        # the f64 steps run beside each other: no time is read from them
+        timing = ("wall_ms", "device_busy_ms", "kernels_per_step") if "device_busy_ms" in one \
+            else ()
+        res[label] = {
+            "one_process": {k: one[k] for k in timing + ("param_bytes", "adam_moment_bytes")},
+            "ranks": [{"place": r["place"], **{k: r[label][k] for k in (
+                "profiled_wall_ms", "device_busy_ms", "kernels_per_step",
+                "param_bytes", "adam_moment_bytes", "sharded_param_bytes", "sharded_layers")
+                if k in r[label]}} for r in ranks],
+            "loss_one_process": one["mets"]["loss"], "loss_2d": r0["mets"]["loss"],
+            "metrics_equal_over_ranks": same, **held}
+        log(f"2-D mesh 2x2 (4 gloo ranks on one card) '{label}' b8, TF32 off, against one "
+            f"process: {json.dumps(res[label])} on {card}")
+        if held["failures"] or not same:
+            raise AssertionError(f"the 2-D '{label}' step != the one-process step: {held}")
+    log(f"3h (a)'s comparisons took {time.perf_counter() - t:.1f} s")
+    return res, counts
+
+
+def spatial_rank(rank, argv):
+    """Phase 3h (b), one of two gloo ranks on the one card: the serving CLI's
+    model (``--spatial``), one b1 frame at a time in f32: 2 warm-up frames,
+    ``SPATIAL_FRAMES`` timed (host clock, each ending in a synchronise), one
+    under torch.profiler; exchanges and kernel launches per frame, K1 held
+    on the last frame's inputs (rank 0), and the last frame's labels."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovealseg_torch.cli import infer as cli
+    from fovealseg_torch.parallel import spatial
+
+    args, cfg, _ = cli._parse(argv)
+    model = cli.build_model(cfg, rank.device)
+    model.set_spatial(dist.group.WORLD)
+    x, f = frames(1, CANVAS, SEED + 70, rank.device)
+    for _ in range(2):
+        model.infer(x, f, argmax_labels=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = spatial.exchanges
+    walls = []
+    for _ in range(SPATIAL_FRAMES):
+        t = time.perf_counter()
+        with kernel_inputs() as seen:
+            label = model.infer(x, f, argmax_labels=True)["pred_label"]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    counts = read_counts()
+    exchanges = (spatial.exchanges - before) / SPATIAL_FRAMES
+    if rank.rank == 0:
+        hold_on_path_inputs("--spatial 2 rank 0, one b1 frame", seen, ("jfa_class",))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.infer(x, f, argmax_labels=True)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return {"wall_ms": statistics.median(walls), "walls_ms": walls,
+            "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            "kernels_per_frame": len(kernels), "exchanges_per_frame": exchanges,
+            "counts": counts, "label": label.cpu()}
+
+
+def _decided(scores):
+    """Where the top-two margin of ``scores`` [..., C] exceeds 1e-4."""
+    top2 = scores.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 1e-4
+
+
+def _cli_masks(d):
+    import os
+
+    import numpy as np
+
+    names = sorted(n for n in os.listdir(d) if n.endswith(".npy"))
+    return names, np.stack([np.load(os.path.join(d, n)) for n in names])
+
+
+def spatial_and_nonsyn_path(card, device, out_dir, b1) -> tuple[dict, dict]:
+    """Phase 3h (b) and (c): two ``--spatial`` ranks (the serving CLI's
+    model, b1) timed beside one process's frame, their labels equal to one
+    process's on every pixel that its scores decide; then the serving CLI
+    with ``--mesh 2`` and ``resnet18_nonsyn`` (b8, two gloo ranks on the
+    card; no time is read from it) beside one process's model on the CLI's
+    frames, at most ``NONSYN_FLIPS`` decided pixels differing. The CLI's
+    ``--spatial`` wiring is held on the CPU
+    (``tests/test_torch_parallel_spatial.py``)."""
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.cli import infer as cli
+    from fovealseg_torch.parallel.launch import run_workers
+
+    common = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--num-batches", "2"]
+    opts = SERVE_F32_OPTS
+    rank_args = common + ["--batch", "1", "--spatial", "2"] + opts
+    t = time.perf_counter()
+    # the one-process frame first: its scores, labels, b1 wall and device busy
+    from torch.profiler import ProfilerActivity, profile
+
+    _, cfg, _ = cli._parse(rank_args)
+    model = cli.build_model(cfg, device)
+    x, f = frames(1, CANVAS, SEED + 70, device)
+    scores = model.infer(x, f)["pred_sampled"]
+    one_label = model.infer(x, f, argmax_labels=True)["pred_label"]
+    for _ in range(2):
+        model.infer(x, f, argmax_labels=True)
+    walls = []
+    for _ in range(SPATIAL_FRAMES):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        model.infer(x, f, argmax_labels=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - s) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.infer(x, f, argmax_labels=True)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    del model
+    torch.cuda.empty_cache()
+    ranks = run_workers(2, spatial_rank, rank_args, device=[0, 0], backend="gloo", timeout=300,
+                        echo=True)
+    ok = _decided(scores)
+    for r in ranks:
+        if not torch.equal(r["label"][ok.cpu()], one_label.cpu()[ok.cpu()]):
+            raise AssertionError("--spatial 2 labels != one process's on the decided pixels")
+    res = {"spatial_ranks": [{k: v for k, v in r.items() if k != "label"} for r in ranks],
+           "one_process": {"wall_ms": statistics.median(walls), "walls_ms": walls,
+                           "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+                           "kernels_per_frame": len(kernels)},
+           "phase_3a_b1": b1, "undecided_pixels": int((~ok).sum())}
+    log(f"--spatial 2 (two gloo ranks on one card), b1 f32: {json.dumps(res)} on {card}")
+    del scores
+
+    # (c): the CLI's two ranks start while this process computes the
+    # reference on the CLI's frames with one model
+    extra = ["MODEL.saliency_net", "resnet18_nonsyn"]
+    _, cfg, _ = cli._parse(common + ["--batch", "8"] + opts + extra)
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(cli.main, common + ["--batch", "8", "--mesh", "2", "--gpus", "0,0",
+                                              "--backend", "gloo", "--out", f"{out_dir}/nonsyn"]
+                          + opts + extra)
+        model = cli.build_model(cfg, device)
+        names, decided, want = [], [], []
+        for batch_names, xs, fs in cli.synthetic_batches(2, CANVAS, 8):
+            x, f = torch.from_numpy(xs).to(device), torch.from_numpy(fs).to(device)
+            with torch.no_grad():
+                decided.append(_decided(model.infer(x, f)["pred_sampled"]).cpu().numpy())
+                want.append(model.infer(x, f, argmax_labels=True)["pred_label"]
+                            .to(torch.uint8).cpu().numpy())
+            names += batch_names
+        del model
+        ranks_summary = fut.result()
+    decided, want = np.concatenate(decided), np.concatenate(want)
+    got = np.stack([np.load(f"{out_dir}/nonsyn/{n}.mask.npy") for n in names])
+    flips = int((got[decided] != want[decided]).sum())
+    # the _nonsyn nets' statistics are all-reduced sums over the ranks, which
+    # round unlike one process's means, so the grid moves by its last bits and
+    # a pixel near a warp cell's edge can take its neighbour's task pixel
+    if got.shape != want.shape or flips > NONSYN_FLIPS:
+        raise AssertionError(f"--mesh 2 resnet18_nonsyn: {flips} decided pixels differ from one "
+                             f"process's labels (at most {NONSYN_FLIPS})")
+    counts = {"spatial_b1_ranks": {"jfa_class": sum(r["counts"]["jfa_class"] for r in ranks)},
+              "nonsyn_cli": {"jfa_class": sum(r["launches"]["jfa_class"]
+                                              for r in ranks_summary)}}
+    res["nonsyn_cli"] = {"frames": ranks_summary[0]["frames"],
+                         "launches": [r["launches"] for r in ranks_summary],
+                         "undecided_pixels": int((~decided).sum()),
+                         "decided_pixels_differing": flips, "pixels": int(decided.size)}
+    torch.cuda.empty_cache()
+    log(f"serving CLI --mesh 2 resnet18_nonsyn (b8, two gloo ranks on one card) against one "
+        f"process: {json.dumps(res['nonsyn_cli'])}; {time.perf_counter() - t:.1f} s")
+    return res, counts
+
+
+def mesh_and_spatial_path(card, device, out_dir, b1):
+    """Phase 3h."""
+    import torch
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh, counts = mesh_2d_path(card, device, out_dir)
+    serving, more = spatial_and_nonsyn_path(card, device, out_dir, b1)
+    counts.update(more)
+    seconds = time.perf_counter() - t
+    log(f"phase 3h took {seconds:.1f} s on {card}")
+    return {"mesh_2d": mesh, "spatial": serving, "phase_3h_s": seconds}, counts
+
+
 def main() -> int:
     import torch
 
@@ -2326,6 +2890,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         real_data, real_counts, real_numbers = real_data_path(
             card, device, out_dir, training["train"]["float32"]["samples_per_s"])
+    log("== phase 3h: the 2-D mesh and spatial serving")
+    with tempfile.TemporaryDirectory() as out_dir:
+        mesh_spatial, mesh_counts = mesh_and_spatial_path(
+            card, device, out_dir, {k: serving["float32"][k] for k in ("b1_ms", "b1_host_ms")})
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -2347,7 +2915,8 @@ def main() -> int:
                    "train": train_counts[name],
                    **{path: c[name] for path, c in encoder_counts.items()},
                    **{path: c.get(name, 0) for path, c in parallel_counts.items()},
-                   **{path: c[name] for path, c in real_counts.items()}}
+                   **{path: c[name] for path, c in real_counts.items()},
+                   **{path: c.get(name, 0) for path, c in mesh_counts.items()}}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -2379,6 +2948,7 @@ def main() -> int:
                                     for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
                     "encoders": encoders, "parallel": parallel, "real_data": real_data,
+                    "mesh_and_spatial": mesh_spatial,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))

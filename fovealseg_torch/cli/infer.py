@@ -15,13 +15,21 @@ JSON throughput summary.
 rank serves its contiguous block of every micro-batch, and rank 0 gathers
 the labels, writes the outputs and prints the summary. ``--batch`` and the
 micro-batch must divide by N. A ``_nonsyn`` saliency net (batch statistics
-at serving) is refused with ``--mesh``: each rank would normalise over its
-own block. ``--spatial`` is not ported.
+at serving) takes them over the whole micro-batch, all ranks together, as
+the JAX package's sharded serve does.
+
+``--spatial N`` (N > 1, the JAX CLI's single-frame latency mode) runs N rank
+processes the same way, each holding the whole frame batch: the warped
+image's rows are split over them for the encoder and the decoder
+(``parallel/spatial.py``, HRNetV2 + C1; SegFormer and DeepLab exit), and
+every rank runs the saliency net, the warp and the inverse warp whole; rank
+0 writes the masks and prints the summary, with the trunk's exchanges.
+``--spatial`` with ``--mesh`` exits, as in the JAX CLI.
 
 Usage:
   python -m fovealseg_torch.cli.infer --cfg fovealseg_torch/configs/deform.yaml \
       [--images DIR --gaze gaze.json | --num-batches N] [--out DIR] [--device cuda] \
-      [--mesh N [--gpus 0-3] [--backend nccl|gloo]]
+      [--mesh N | --spatial N] [--gpus 0-3] [--backend nccl|gloo]
   gaze.json: {"<image filename>": [fy, fx], ...} in [0,1]^2 (default center).
 """
 
@@ -124,23 +132,13 @@ def _drain(pending, on_masks, group=None) -> int:
     names, label, timed = pending
     masks = label.to(torch.uint8)
     if group is not None:
-        masks = _gather_blocks(masks, group)
+        from fovealseg_torch.parallel.mesh import all_gather_tensors
+
+        masks = torch.cat(all_gather_tensors(masks, group))
     masks = masks.cpu().numpy()  # waits for this batch only
     if on_masks is not None:
         on_masks(names, masks)
     return len(names) if timed else 0
-
-
-def _gather_blocks(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's block of ``t``, concatenated in rank order (gloo gathers
-    host copies: it moves no CUDA tensors but in an all-reduce)."""
-    import torch.distributed as dist
-
-    if dist.get_backend(group) == "gloo":
-        t = t.cpu()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts)
 
 
 def _writer(out_dir, png):
@@ -190,8 +188,13 @@ def _parse(argv):
                              "--microbatch equal to --batch runs whole batches)")
     parser.add_argument("--mesh", type=int, default=0,
                         help="split each batch over N rank processes (0 = one process)")
+    parser.add_argument("--spatial", type=int, default=0,
+                        help="split each frame's encoder and decoder rows over N rank processes "
+                             "(N > 1; single-frame latency, use with --batch 1; exclusive with "
+                             "--mesh)")
     parser.add_argument("--gpus", default=None,
-                        help="the ranks' cards with --mesh, reference grammar (default 0..N-1)")
+                        help="the ranks' cards with --mesh or --spatial, reference grammar "
+                             "(default 0..N-1)")
     parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                         help="the ranks' backend (default: NCCL on cards, gloo on the CPU)")
     parser.add_argument("--canvas", type=int, default=640)
@@ -218,11 +221,14 @@ def _parse(argv):
             raise SystemExit("--batch must be divisible by --mesh")
         if micro % args.mesh:
             raise SystemExit(f"the micro-batch ({micro}) must be divisible by --mesh")
-        if cfg.MODEL.saliency_net.endswith("_nonsyn"):
-            raise NotImplementedError(
-                f"--mesh with MODEL.saliency_net {cfg.MODEL.saliency_net!r}: its BN uses the "
-                "batch's statistics at serving, which each rank would take over its own block; "
-                "not ported (ROADMAP queue 1, 'parallelism')")
+    if args.spatial > 1:
+        if args.mesh:
+            raise SystemExit("--spatial and --mesh are exclusive")
+        from fovealseg_torch.parallel.spatial import ROADMAP_ENTRY
+
+        if cfg.MODEL.arch_encoder not in ("hrnetv2_nodownsp", "hrnetv2_nodownsp_tiny"):
+            raise SystemExit(f"--spatial with MODEL.arch_encoder {cfg.MODEL.arch_encoder!r}: "
+                             f"row-partitioned serving is not ported ({ROADMAP_ENTRY})")
     return args, cfg, micro
 
 
@@ -233,7 +239,8 @@ def main(argv=None):
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args, _, _ = _parse(argv)
-    if args.mesh:
+    ranks = args.mesh or (args.spatial if args.spatial > 1 else 0)
+    if ranks:
         from fovealseg_torch.parallel.launch import run_workers
 
         if args.device == "cpu":
@@ -242,7 +249,7 @@ def main(argv=None):
             from fovealseg_torch.cli.train import parse_devices
 
             device = parse_devices(args.gpus) if args.gpus else "cuda"
-        return run_workers(args.mesh, _rank_main, argv, device=device, backend=args.backend,
+        return run_workers(ranks, _rank_main, argv, device=device, backend=args.backend,
                            echo=True, threads=1 if device == "cpu" else None)
     return _serve(argv, None)
 
@@ -253,11 +260,14 @@ def _rank_main(rank, argv):
 
 def _serve(argv, rank):
     from fovealseg_torch import resolve_device
+    from fovealseg_torch.models.layers import set_batch_stats_group
     from fovealseg_torch.ops import gather, jfa
+    from fovealseg_torch.parallel import spatial
 
     args, cfg, micro = _parse(argv)
     kernels = {"jfa_class": jfa.nearest_class, "row_gather": gather.row_gather}
     before = {name: fn.launches for name, fn in kernels.items()}
+    exchanges = spatial.exchanges
     if rank is None:
         device, group, main_rank = resolve_device(args.device), None, True
     else:
@@ -265,6 +275,11 @@ def _serve(argv, rank):
 
         device, group, main_rank = rank.device, dist.group.WORLD, rank.rank == 0
     module = build_model(cfg, device, args.torch_ckpt, args.torch_epoch)
+    if group is not None and args.spatial > 1:
+        module.set_spatial(group)
+        group = None  # every rank serves the whole batch
+    elif group is not None:
+        set_batch_stats_group(module, group)  # the _nonsyn nets: the whole micro-batch's
     if args.images:
         gaze_map = {}
         if args.gaze:
@@ -286,6 +301,7 @@ def _serve(argv, rank):
         "batch": args.batch,
         "microbatch": micro,
         "mesh": args.mesh,
+        "spatial": args.spatial,
         "task": list(module.config.task_hw_infer),
         "dtype": str(module.dtype).replace("torch.", ""),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -294,6 +310,7 @@ def _serve(argv, rank):
     if main_rank:
         print(json.dumps(summary), flush=True)
     summary["launches"] = {name: fn.launches - before[name] for name, fn in kernels.items()}
+    summary["exchanges"] = spatial.exchanges - exchanges
     return summary
 
 

@@ -14,8 +14,20 @@ rank processes started by ``parallel/launch.py``, one per card over NCCL
 The global batch is ``TRAIN.batch_size_per_gpu x N``; ``TRAIN.auto_batch
 auto10`` counts N devices, as the JAX CLI does. Cross-rank BN follows
 ``TPU.sync_bn`` when N > 1. Rank 0 logs, writes the history and the
-checkpoints; every rank loads them. ``TPU.mesh_shape`` with two non-zero
-dimensions (the 2-D mesh), ``TPU.quantize`` and ``TPU.conv_pack`` raise.
+checkpoints; every rank loads them.
+
+``TPU.mesh_shape '(dp,mp)'`` with two non-zero dimensions trains on the 2-D
+(data, model) mesh (``parallel/mesh.py``, the JAX CLI's GSPMD step): dp * mp
+ranks, the wide weights sharded over the mp ranks of each data index
+(``parallel/tensor_parallel.py``), the one-process step on the global batch
+of ``TRAIN.batch_size_per_gpu x dp x mp`` (BN over the global batch whatever
+``TPU.sync_bn`` says), and the eval stream through the 2-D eval step. As in
+the JAX CLI, ``--gpus`` does not size it: without ``--gpus`` rank r runs on
+``cuda:r``; ``--gpus`` may name one card per rank (``--gpus 0,0,0,0
+--backend gloo`` puts four ranks on one card). ``auto10`` counts dp * mp
+devices. Checkpoints hold the gathered (one-process) tensors, written by
+rank 0, and each rank loads its shards of them. ``TPU.quantize`` and
+``TPU.conv_pack`` raise.
 
 ``--data <cook root>`` trains on a cooked set (``python -m
 fovealseg_torch.cli.cook``): ``--dataset lvis`` (with ``--image-root`` for
@@ -50,14 +62,17 @@ import re
 
 def refuse_unported(cfg) -> None:
     """Raise for every option this CLI does not run."""
-    mesh = tuple(cfg.TPU.mesh_shape)
-    if len(mesh) == 2 and all(s > 0 for s in mesh):
-        raise NotImplementedError("TPU.mesh_shape with two non-zero dimensions (the 2-D mesh) "
-                                  "is not ported (ROADMAP queue 1, 'the 2-D mesh')")
     if cfg.TPU.quantize or cfg.TPU.conv_pack:
         raise NotImplementedError(
             "TPU.quantize and TPU.conv_pack are tuned to the TPU's matrix unit and are not "
             "ported (ROADMAP, 'Not to port'); unset them")
+
+
+def mesh_2d(cfg) -> tuple[int, int] | None:
+    """(dp, mp) when ``TPU.mesh_shape`` selects the 2-D mesh (two non-zero
+    dimensions), else None."""
+    shape = tuple(cfg.TPU.mesh_shape)
+    return (int(shape[0]), int(shape[1])) if len(shape) == 2 and all(s > 0 for s in shape) else None
 
 
 def parse_devices(spec: str) -> list[int]:
@@ -104,13 +119,20 @@ def _resume(cfg, state, log) -> None:
 
 def main(argv=None):
     """Train. One process: return the final ``TrainState``. Several ranks
-    (``--gpus`` naming N > 1 devices): start them, and return each rank's
-    summary (``step``, ``topology``) in rank order."""
+    (``--gpus`` naming N > 1 devices, or the 2-D mesh): start them, and
+    return each rank's summary (``step``, ``topology``) in rank order."""
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args, cfg = _parse(argv)
     devices = parse_devices(args.gpus) if args.gpus else []
+    grid = mesh_2d(cfg)
+    if grid is not None:
+        n = grid[0] * grid[1]
+        if devices and len(devices) != n:
+            raise ValueError(f"TPU.mesh_shape {grid} runs {n} ranks, and --gpus names "
+                             f"{len(devices)} devices: name one per rank, or leave --gpus out")
+        devices = devices or list(range(n))
     if len(devices) > 1:
         from fovealseg_torch.parallel.launch import run_workers
 
@@ -229,7 +251,8 @@ def _train(args, cfg, rank):
     from fovealseg_torch.data.synthetic import make_batch_device
     from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
     from fovealseg_torch.models.layers import convert_sync_bn, init_weights
-    from fovealseg_torch.parallel.mesh import replicate_state, shard_batch
+    from fovealseg_torch.parallel.mesh import (make_mesh_2d, replicate_state, shard_batch,
+                                               shard_model_2d)
     from fovealseg_torch.train import step as S
     from fovealseg_torch.train.checkpoint import load_torch_weight_files
     from fovealseg_torch.train.loop import fit
@@ -242,6 +265,18 @@ def _train(args, cfg, rank):
             device = torch.device("cuda", parse_devices(args.gpus)[0])
     else:
         device, r, world, group = rank.device, rank.rank, rank.world_size, dist.group.WORLD
+    grid = mesh_2d(cfg)
+    mesh = None
+    # the batch is split over the data indices: one block per rank (1-D), per
+    # data index (2-D)
+    block, blocks = r, world
+    if grid is not None and grid[0] * grid[1] > 1:  # a 1x1 mesh is the one-process step
+        if world != grid[0] * grid[1]:
+            raise ValueError(f"TPU.mesh_shape {grid} needs {grid[0] * grid[1]} ranks, "
+                             f"this run has {world}")
+        mesh = make_mesh_2d(*grid)
+        group = None
+        block, blocks = mesh.data_index, mesh.dp
     if cfg.TRAIN.auto_batch == "auto10":
         # ~0.65M pixels per device; epoch_iters = one pass of the list file over the devices
         cfg.TRAIN.batch_size_per_gpu = max(1, int((1e6 * 0.65) // (cfg.DATASET.imgSizes[0] ** 2)))
@@ -284,11 +319,15 @@ def _train(args, cfg, rank):
         if any(files.values()):
             log.info("loaded torch weights: %s", load_torch_weight_files(model, files))
         log.info("model summary:\n%s", summarize(model))
-        if world > 1 and cfg.TPU.sync_bn:
+        if mesh is not None:
+            log.info("2-D mesh: dp=%d x mp=%d over %s, %d layers sharded over 'model', BN over "
+                     "the global batch", mesh.dp, mesh.mp, dist.get_backend(),
+                     shard_model_2d(model, mesh))
+        elif world > 1 and cfg.TPU.sync_bn:
             log.info("cross-rank BN on %d layers", convert_sync_bn(model, group))
         lcfg = S.LossConfig.from_cfg(cfg)
         state = S.init_state(model, create_optimizer(cfg, model), cfg.TRAIN.seed,
-                             fix_bn=cfg.TRAIN.fix_bn)
+                             fix_bn=cfg.TRAIN.fix_bn, mesh=mesh)
         _resume(cfg, state, log)
         if group is not None:
             replicate_state(state, group)
@@ -296,20 +335,21 @@ def _train(args, cfg, rank):
                      dist.get_backend(group), cfg.TRAIN.batch_size_per_gpu * world)
 
         if cfg.MODEL.gt_gradient and cfg.MODEL.gt_gradient_intrinsic_only:
-            train_step = S.make_forward_only_step(lcfg, fix_bn=cfg.TRAIN.fix_bn, group=group)
+            train_step = S.make_forward_only_step(lcfg, fix_bn=cfg.TRAIN.fix_bn, group=group,
+                                                  mesh=mesh)
             log.info("gt_gradient_intrinsic_only: optimizer updates disabled")
         else:
             train_step = S.make_train_step(lcfg, make_stage_schedules(cfg),
-                                           fix_bn=cfg.TRAIN.fix_bn, group=group)
-        eval_step = S.make_eval_step(lcfg, group=group)
+                                           fix_bn=cfg.TRAIN.fix_bn, group=group, mesh=mesh)
+        eval_step = S.make_eval_step(lcfg, group=group, mesh=mesh)
         num_fg = cfg.DATASET.num_class - 1
 
         def stream(seed: int, n: int):
             gen = torch.Generator(device=device)
             gen.manual_seed(seed)
             for _ in range(n):
-                yield shard_batch(make_batch_device(gen, global_batch, args.canvas, num_fg), r,
-                                  world)
+                yield shard_batch(make_batch_device(gen, global_batch, args.canvas, num_fg),
+                                  block, blocks)
 
         def to_device(batch):
             return {k: host_to_device(v, device) for k, v in batch.items()}
@@ -323,18 +363,23 @@ def _train(args, cfg, rank):
         else:
             def train_loader(epoch):
                 return prefetch(train_ds.batches(global_batch, shuffle=True,
-                                                 seed=cfg.TRAIN.seed + epoch, rank=r,
-                                                 world=world), transform=to_device)
+                                                 seed=cfg.TRAIN.seed + epoch, rank=block,
+                                                 world=blocks), transform=to_device)
 
             def val_loader():
-                return prefetch(val_ds.batches(global_batch, shuffle=False, rank=r, world=world),
-                                transform=to_device)
+                return prefetch(val_ds.batches(global_batch, shuffle=False, rank=block,
+                                               world=blocks), transform=to_device)
 
         def visual_fn(state, epoch):
             from fovealseg_torch.utils.visuals import collect_deform_visuals, dump_batch_visuals
 
+            if r != 0 and mesh is None:
+                return
+            # on the 2-D mesh every rank runs the sharded forward; rank 0 writes
             vis = collect_deform_visuals(state.model, next(iter(val_loader())),
                                          cfg.DATASET.num_class)
+            if r != 0:
+                return
             out_dir = os.path.join(cfg.DIR, f"train_visual_epoch{epoch}")
             paths = dump_batch_visuals(out_dir, vis, num_classes=cfg.DATASET.num_class)
             log.info("wrote %d train visuals to %s", len(paths), out_dir)

@@ -9,6 +9,11 @@
 
 Each is the JAX function's arithmetic in the same order; ``pt`` of the focal
 loss is detached, as the JAX package stops its gradient.
+
+The training losses take an optional ``reduce`` (``parallel/mesh.py::
+BatchReduce``): a rank that holds one block of the global batch then gives
+the global batch's loss, with its per-class sums, extrema and means taken
+over the ranks of a data group (the JAX package's GSPMD step).
 """
 
 from __future__ import annotations
@@ -32,48 +37,60 @@ def _take(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def dice_loss_multiclass(logits: torch.Tensor, labels: torch.Tensor, smooth: float = 0.0,
-                         eps: float = 1e-7) -> torch.Tensor:
+                         eps: float = 1e-7, reduce=None) -> torch.Tensor:
     """Soft dice per class over (batch, pixels) of the softmax against the
     one-hot target; classes absent from the target contribute 0; mean over
-    all classes."""
+    all classes. With ``reduce`` the per-class sums are the global batch's."""
     c = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     onehot = _one_hot(labels, c, probs.dtype)
     dims = (0, 1, 2)
     intersection = torch.sum(probs * onehot, dim=dims)
     cardinality = torch.sum(probs + onehot, dim=dims)
+    count = torch.sum(onehot, dim=dims)
+    if reduce is not None:
+        intersection, cardinality, count = reduce.sum(
+            torch.stack([intersection, cardinality, count])).unbind()
     score = (2.0 * intersection + smooth) / torch.clamp(cardinality + smooth, min=eps)
     loss = 1.0 - score
-    present = torch.sum(onehot, dim=dims) > 0
+    present = count > 0
     return torch.mean(loss * present.to(loss.dtype))
 
 
-def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 5.0) -> torch.Tensor:
+def _mean(x: torch.Tensor, reduce=None) -> torch.Tensor:
+    """The mean of ``x``; with ``reduce``, over the global batch (each rank
+    holds an equal block)."""
+    return torch.mean(x) if reduce is None else reduce.avg(torch.mean(x))
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 5.0,
+               reduce=None) -> torch.Tensor:
     """``-(1 - pt)^gamma * log pt``, mean over pixels; ``pt`` is a constant
     for the gradient."""
     logpt = _take(F.log_softmax(logits, dim=-1), labels)
     pt = torch.exp(logpt).detach()
-    return torch.mean(-((1.0 - pt) ** gamma) * logpt)
+    return _mean(-((1.0 - pt) ** gamma) * logpt, reduce)
 
 
-def minmax_normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
-    """Min-max normalisation over the whole tensor (the batch included)."""
-    lo = torch.min(x)
-    hi = torch.max(x)
+def minmax_normalize(x: torch.Tensor, eps: float = 0.0, reduce=None) -> torch.Tensor:
+    """Min-max normalisation over the whole tensor (the batch included; with
+    ``reduce``, the global batch)."""
+    lo = torch.min(x) if reduce is None else reduce.min(x)
+    hi = torch.max(x) if reduce is None else reduce.max(x)
     return (x - lo) / (hi - lo + eps)
 
 
 def edge_loss(saliency: torch.Tensor, target: torch.Tensor, edge_loss_scale=100.0,
-              normalize: bool = True, eps: float = 1e-12) -> torch.Tensor:
+              normalize: bool = True, eps: float = 1e-12, reduce=None) -> torch.Tensor:
     """The deformation edge loss: with ``normalize`` (the default
     ``TRAIN.opt_deform_LabelEdge_norm``) ``0.05 * MSE`` of the two globally
     min-max normalised maps times the scale, else the plain MSE times the
     scale. ``edge_loss_scale`` may be a float or a scalar tensor."""
     if normalize:
-        saliency = minmax_normalize(saliency, eps)
-        target = minmax_normalize(target, eps)
+        saliency = minmax_normalize(saliency, eps, reduce)
+        target = minmax_normalize(target, eps, reduce)
     factor = 0.05 if normalize else 1.0
-    return factor * torch.mean((saliency - target) ** 2) * edge_loss_scale
+    return factor * _mean((saliency - target) ** 2, reduce) * edge_loss_scale
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,9 @@ of ``fovealseg_tpu/models/c1.py``). NCHW.
 logit; the mask is ``sigmoid(x) - 0.5`` in f32. ``cls_net`` (two
 ResidualBlocks, strides 4 and 2, global mean pool, FC) gives the class
 logits, broadcast over H x W with the last (background) channel multiplied
-by the mask. The output is f32, as the JAX concatenation promotes it.
+by the mask. The output is f32, as the JAX concatenation promotes it. The
+global mean goes through ``layers.trunk_mean`` (row-partitioned serving
+all-reduces it).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from fovealseg_torch.models.layers import batch_norm, conv2d, linear
+from fovealseg_torch.models.layers import batch_norm, conv2d, linear, trunk_mean
 
 
 class ResidualBlock(nn.Module):
@@ -47,7 +49,7 @@ class ClsResNet(nn.Module):
 
     def forward(self, x):
         x = self.layer3(self.layer2(x))
-        return self.fc(torch.mean(x, dim=(2, 3)))
+        return self.fc(trunk_mean(x))
 
 
 class C1(nn.Module):

@@ -24,6 +24,14 @@ does. ``infer`` (argmax labels and full-res score maps in every
 ``rev_deform_interp``, the round trips, the uniform baselines,
 ``VAL.F_Xlr_low_scale > 1``, ``MODEL.gt_gradient``) runs in eval mode
 under ``no_grad``. ``TPU.scoremap_gather_bf16`` raises ``NotImplementedError``.
+
+:meth:`DeformSegmentation.set_spatial` (the counterpart of the JAX module's
+``spatial_sharding``, ``_shard_rows`` and ``_replicate``): the eval forward
+and ``infer`` split the warped image's rows over the ranks of a process
+group right before the encoder, run the encoder and the decoder on row
+blocks (``parallel/spatial.py``) and gather the decoder's output whole
+before the inverse warp. The saliency net, the grid, the warp, the scatter
+and the jump flood run whole on every rank. HRNetV2 + C1 only.
 """
 
 from __future__ import annotations
@@ -187,8 +195,29 @@ class DeformSegmentation(nn.Module):
         self.net_compress = build_net_compress(c.saliency_net, dtype)
         self.encoder = build_encoder(c.arch_encoder, c.fc_dim, dtype)
         self.decoder = build_decoder(c.arch_decoder, c.fc_dim, c.num_class, dtype)
+        self.spatial_rows = None
         self.to(self.device)
         self.eval()
+
+    def set_spatial(self, group) -> None:
+        """Run the encoder and the decoder of inference row-partitioned over
+        the ranks of ``group`` (None: whole). Each rank holds the whole frame
+        batch. HRNetV2 + C1 only: other nets raise."""
+        from fovealseg_torch.models.c1 import C1
+        from fovealseg_torch.models.hrnet import HRNetV2NoDownsp
+        from fovealseg_torch.parallel import spatial
+
+        self.spatial_rows = None
+        if group is None:
+            return
+        for net, arch, kind in ((self.encoder, self.config.arch_encoder, HRNetV2NoDownsp),
+                                (self.decoder, self.config.arch_decoder, C1)):
+            if not isinstance(net, kind):
+                raise NotImplementedError(f"row-partitioned serving of {arch!r} is not "
+                                          f"ported ({spatial.ROADMAP_ENTRY})")
+        spatial.row_aware(self.encoder)
+        spatial.row_aware(self.decoder)
+        self.spatial_rows = spatial.RowShards(group)
 
     @contextlib.contextmanager
     def _mode(self, train: bool):
@@ -274,9 +303,15 @@ class DeformSegmentation(nn.Module):
         return grid_sample(x.to(self.dtype), grid)
 
     def _segment(self, x_sampled: torch.Tensor) -> torch.Tensor:
-        """Encoder/decoder of the warped image -> pred NHWC."""
-        pred = self.decoder(self.encoder(x_sampled.permute(0, 3, 1, 2).contiguous()))
-        return pred.permute(0, 2, 3, 1)
+        """Encoder/decoder of the warped image -> pred NHWC; row-partitioned
+        when a spatial group is set (inference only: a training forward
+        raises)."""
+        x = x_sampled.permute(0, 3, 1, 2).contiguous()
+        if self.spatial_rows is not None:
+            from fovealseg_torch.parallel.spatial import run_trunk
+
+            return run_trunk(self.encoder, self.decoder, x, self.spatial_rows).permute(0, 2, 3, 1)
+        return self.decoder(self.encoder(x)).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor, focus_point: torch.Tensor, train: bool = False,
                 xs_override=None, y=None, pool_s=None, rng: torch.Generator | None = None,

@@ -3,7 +3,9 @@
 Stride-1 stem, 4 Bottlenecks 64 -> 256, stages 2/3/4 with 2/3/4 branches of
 (64, 128, 256, 512) channels and (1, 4, 3) modules of 4 BasicBlocks, the
 all-to-all HRNet fuse, and a head that upsamples every branch to the top
-resolution and concatenates them (960 channels). NCHW.
+resolution and concatenates them (960 channels). NCHW. The up-resizes go
+through ``layers.trunk_resize``, which row-partitioned serving
+(``parallel/spatial.py``) routes to its row blocks.
 
 The module tree mirrors the reference's torch module paths
 (``nn.Sequential``/``nn.ModuleList``, ``None`` where the reference has no
@@ -16,8 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from fovealseg_torch.core.interpolate import resize_bilinear_nchw
-from fovealseg_torch.models.layers import Dropout, batch_norm, conv2d
+from fovealseg_torch.models.layers import Dropout, batch_norm, conv2d, trunk_resize
 
 STAGE_CHANNELS = ((64, 128), (64, 128, 256), (64, 128, 256, 512))
 
@@ -112,7 +113,7 @@ class HighResolutionModule(nn.Module):
                 if j == i:
                     t = feats[j]
                 elif j > i:
-                    t = resize_bilinear_nchw(layer(feats[j]), feats[i].shape[-2:])
+                    t = trunk_resize(layer(feats[j]), feats[i].shape[-2:])
                 else:
                     t = layer(feats[j])
                 y = t if y is None else y + t
@@ -157,5 +158,5 @@ class HRNetV2NoDownsp(nn.Module):
         feats = self.stage3(feats + [self.transition2[2](feats[-1])])
         feats = self.stage4(feats + [self.transition3[3](feats[-1])])
         h, w = feats[0].shape[-2:]
-        ups = [feats[0]] + [resize_bilinear_nchw(f, (h, w)) for f in feats[1:]]
+        ups = [feats[0]] + [trunk_resize(f, (h, w)) for f in feats[1:]]
         return [torch.cat(ups, dim=1)]

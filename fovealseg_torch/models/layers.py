@@ -17,6 +17,9 @@ package's ``axis_name``, ``TPU.sync_bn``) is a process group set on each
 more than one rank. ``Dropout`` draws its
 mask from an explicit ``torch.Generator``, installed for a forward by
 :func:`dropout_generator` (the counterpart of ``rngs={'dropout': rng}``).
+Inside :func:`batch_block` (the 2-D mesh's step) ``Dropout`` and ``DropPath``
+draw the global batch's mask and keep this rank's block of it, so that the
+ranks together draw what one process draws for the global batch.
 
 Init mirrors the JAX package: Kaiming-normal (fan_in) conv and linear
 weights (xavier-uniform for a ``Linear`` built with ``init="xavier_uniform"``,
@@ -40,6 +43,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from fovealseg_torch.core.interpolate import resize_bilinear_nchw
 
 
 class _CastCache:
@@ -81,12 +86,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     stays 0, as the JAX package's exports write it.
 
     ``process_group`` (set by :func:`convert_sync_bn`): in train mode over
-    more than one rank, the statistics are flax's under ``axis_name``: the
-    per-channel mean and E[x^2] of this rank's block in f32, averaged over
-    the ranks in one all-reduce, var = max(E[x^2] - mean^2, 0), and
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the running
-    statistics take the global mean and biased variance. The gradient flows
-    through the all-reduce (:class:`_RankMean`)."""
+    more than one rank, the statistics of the batch that the ranks hold
+    together (flax's under ``axis_name``, and the global batch's of the
+    JAX package's GSPMD step), in f32: each rank's per-channel mean and
+    biased variance (two passes) and count, combined exactly as parallel
+    variances combine, and ``(x - mean) * (rsqrt(var + eps) * weight) +
+    bias``; the running statistics take the global mean and biased
+    variance. The backward is PyTorch's (cuDNN's and ``SyncBatchNorm``'s)
+    arithmetic with the sums of ``dy`` and ``dy * (x - mean)`` taken over
+    the ranks (:class:`_SyncedBatchNorm`): the form ``E[x^2] - mean^2``
+    differentiates into the difference of two large terms, and at the
+    flagship's class branch, whose upstream gradient is constant over each
+    map, that difference is most of the result.
+    """
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -112,37 +124,63 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out.to(self.compute_dtype)
 
     def _synced(self, x):
-        xf = at_least_f32(x)
-        local = torch.stack([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
-        mean, mean2 = _RankMean.apply(local, self.process_group).unbind()
-        var = torch.clamp_min(mean2 - mean.square(), 0.0)
+        y, mean, var = _SyncedBatchNorm.apply(at_least_f32(x), self.weight, self.bias, self.eps,
+                                              self.process_group)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
         return y.to(self.compute_dtype)
 
 
-class _RankMean(torch.autograd.Function):
-    """``pmean`` over a process group: the all-reduced sum over the world
-    size. Its backward is the same (JAX transposes ``pmean`` into
-    ``psum / n``), so each rank's input gets the gradient of every rank's
-    loss through the shared statistics."""
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the ranks of a group, NCHW in f32: returns the
+    output and the global mean and biased variance (no gradient).
+
+    Forward: one all-reduce gathers each rank's (mean, biased variance,
+    count) into its slot of a [world, 3, C] buffer (the other slots are
+    zero, so the sum is exact); the global mean is the count-weighted mean,
+    the global variance the count-weighted mean of ``var_r + (mean_r -
+    mean)^2``. Backward: ``dx = (dy - sum(dy) / N - (x - mean) * invstd^2 *
+    sum(dy * (x - mean)) / N) * invstd * weight`` with both sums over the
+    ranks (one all-reduce), so each rank's input gets the gradient of every
+    rank's loss through the shared statistics; the weight and bias get this
+    rank's sums, which the data-parallel step reduces."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, weight, bias, eps, group):
+        dims = (0, 2, 3)
+        var_r, mean_r = torch.var_mean(x, dim=dims, unbiased=False)
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        slots = x.new_zeros(world, 3, x.shape[1])
+        slots[rank, 0], slots[rank, 1] = mean_r, var_r
+        slots[rank, 2] = x.numel() // x.shape[1]
+        dist.all_reduce(slots, group=group)
+        means, variances, counts = slots.unbind(1)
+        n = counts.sum(0)
+        mean = (means * counts).sum(0) / n
+        var = ((variances + (means - mean).square()) * counts).sum(0) / n
+        invstd = torch.rsqrt(var + eps)
+        y = ((x - mean.view(1, -1, 1, 1)) * (invstd * weight).view(1, -1, 1, 1)
+             + bias.view(1, -1, 1, 1))
+        ctx.save_for_backward(x, weight, mean, invstd, n)
         ctx.group = group
-        y = x.detach().clone()
-        dist.all_reduce(y, group=group)
-        return y / dist.get_world_size(group)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
 
     @staticmethod
-    def backward(ctx, grad):
-        g = grad.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g / dist.get_world_size(ctx.group), None
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dims = (0, 2, 3)
+        xmu = x - mean.view(1, -1, 1, 1)
+        local = torch.stack([dy.sum(dim=dims), (dy * xmu).sum(dim=dims)])
+        total = local.clone()
+        dist.all_reduce(total, group=ctx.group)
+        sum_dy, sum_dy_xmu = (total / n).unbind()
+        dx = ((dy - sum_dy.view(1, -1, 1, 1)
+               - xmu * (invstd.square() * sum_dy_xmu).view(1, -1, 1, 1))
+              * (invstd * weight).view(1, -1, 1, 1))
+        return dx, local[1] * invstd, local[0], None, None
 
 
 def convert_sync_bn(model: nn.Module, group) -> int:
@@ -158,8 +196,69 @@ def convert_sync_bn(model: nn.Module, group) -> int:
     return n
 
 
+class _RankSum(torch.autograd.Function):
+    """``psum`` over a process group, also in the backward: statistics that
+    every rank's loss reads through its own block."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.detach().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def set_batch_stats_group(model: nn.Module, group) -> int:
+    """Take the statistics of every ``BatchStatsNorm`` of ``model`` over the
+    ranks of ``group`` (None: this rank's batch alone), as the JAX package's
+    GSPMD steps take them over the global batch. Returns the number of
+    layers set."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, BatchStatsNorm):
+            m.process_group = group
+            n += 1
+    return n
+
+
 class _DropoutRng:
     generator: torch.Generator | None = None
+    block: tuple[int, int] | None = None  # (this rank's index, blocks in the global batch)
+
+
+@contextlib.contextmanager
+def batch_block(index: int, count: int):
+    """Inside the block, a train-mode ``Dropout`` or ``DropPath`` given a
+    batch of B draws the mask of the global batch of ``count * B`` and keeps
+    the ``index``-th block of B (the JAX package's 2-D step draws one mask
+    for the global batch from one key)."""
+    prev = _DropoutRng.block
+    _DropoutRng.block = (index, count)
+    try:
+        yield
+    finally:
+        _DropoutRng.block = prev
+
+
+def _keep_mask(shape, x: torch.Tensor, keep: float, gen: torch.Generator) -> torch.Tensor:
+    """A Bernoulli(``keep``) mask of ``shape`` (batch first) in ``x``'s dtype
+    and device, drawn from ``gen``; inside :func:`batch_block`, this rank's
+    block of the global batch's mask."""
+    block = _DropoutRng.block
+    if block is None:
+        like = torch.empty_like(x) if tuple(shape) == tuple(x.shape) else torch.empty(
+            shape, dtype=x.dtype, device=x.device)
+        return like.bernoulli_(keep, generator=gen)
+    index, count = block
+    b = shape[0]
+    full = torch.empty((b * count, *shape[1:]), dtype=x.dtype, device=x.device)
+    return full.bernoulli_(keep, generator=gen)[index * b:(index + 1) * b]
 
 
 @contextlib.contextmanager
@@ -192,8 +291,7 @@ class Dropout(nn.Module):
             raise RuntimeError("train-mode dropout needs a torch.Generator: run the forward "
                                "with DeformSegmentation(..., train=True, rng=generator)")
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=gen)
-        return x * mask / keep
+        return x * _keep_mask(x.shape, x, keep, gen) / keep
 
 
 class DropPath(nn.Module):
@@ -214,8 +312,7 @@ class DropPath(nn.Module):
                                "with DeformSegmentation(..., train=True, rng=generator)")
         keep = 1.0 - self.p
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(keep, generator=gen)
-        return x * mask / keep
+        return x * _keep_mask(shape, x, keep, gen) / keep
 
 
 class LayerNorm(nn.LayerNorm):
@@ -241,7 +338,12 @@ class BatchStatsNorm(nn.Module):
     the current batch's mean and variance in train and eval alike, the
     variance as E[x^2] - mean^2 in f32; learned scale and bias, no running
     statistics. So a served output depends on which frames share its
-    batch, as in the reference."""
+    batch, as in the reference.
+
+    ``process_group`` (set by :func:`set_batch_stats_group`): the statistics
+    of the batch that the ranks of the group hold together, from one
+    all-reduce of the f32 sums of x and x^2 and the count (the gradient
+    flows through it, :class:`_RankSum`)."""
 
     eps = 1e-5
 
@@ -250,13 +352,49 @@ class BatchStatsNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.compute_dtype = dtype
+        self.process_group = None
 
     def forward(self, x):
         xf = at_least_f32(x)
-        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
-        var = xf.square().mean(dim=(0, 2, 3), keepdim=True) - mean.square()
+        if self.process_group is None:
+            mean = xf.mean(dim=(0, 2, 3), keepdim=True)
+            var = xf.square().mean(dim=(0, 2, 3), keepdim=True) - mean.square()
+        else:
+            c = x.shape[1]
+            count = xf.new_full((1,), x.numel() // c)
+            sums = _RankSum.apply(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                             xf.square().sum(dim=(0, 2, 3)), count]),
+                                  self.process_group)
+            mean = (sums[:c] / sums[-1]).view(1, c, 1, 1)
+            var = (sums[c:2 * c] / sums[-1]).view(1, c, 1, 1) - mean.square()
         w, b = self.weight.view(1, -1, 1, 1), self.bias.view(1, -1, 1, 1)
         return ((xf - mean) * torch.rsqrt(var + self.eps) * w + b).to(self.compute_dtype)
+
+
+class RowHooks:
+    """The row-partitioned trunk that is running, if any
+    (``parallel/spatial.py::RowShards.running``). While one runs, the
+    encoder's and decoder's convs (swapped for ``spatial.RowConv2d``), their
+    up-resizes (:func:`trunk_resize`) and C1's global mean
+    (:func:`trunk_mean`) take their row blocks through it."""
+
+    active = None
+
+
+def trunk_resize(x: torch.Tensor, size) -> torch.Tensor:
+    """``resize_bilinear_nchw(x, size)``; inside a row-partitioned trunk,
+    this rank's rows of it (``size`` then being the local rows' size)."""
+    if RowHooks.active is not None:
+        return RowHooks.active.resize(x, size)
+    return resize_bilinear_nchw(x, size)
+
+
+def trunk_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over (H, W) [B, C]; inside a row-partitioned trunk, that of
+    the whole tensor whose rows the ranks hold."""
+    if RowHooks.active is not None:
+        return RowHooks.active.mean(x)
+    return torch.mean(x, dim=(2, 3))
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:

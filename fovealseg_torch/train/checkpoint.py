@@ -24,7 +24,11 @@
   ``_last`` copies; an off-cadence epoch writes only those. Writes are
   synchronous, the ``_last`` files after the numbered ones. Under data
   parallelism rank 0 writes and every rank loads; the port's own
-  checkpoint loads strictly.
+  checkpoint loads strictly. On a 2-D mesh (``state.mesh``) every rank
+  gathers the sharded weights and their optimizer state whole
+  (``parallel/mesh.py::gather_state_2d``) and global rank 0 writes them, so
+  the files are a one-process run's; loading cuts each rank's shards out of
+  them (``slice_state_2d``), so either kind of run resumes from the other.
 """
 
 from __future__ import annotations
@@ -148,16 +152,25 @@ def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> lis
     """Write ``state`` (``train/step.py::TrainState``) for ``epoch``: the
     4-file set ``{kind}_epoch_{epoch}.pth`` and ``train_state_epoch_{epoch}.pth``,
     then the ``_last`` copies; with ``only_last`` just the ``_last`` files.
-    In a process group only rank 0 writes (the others return at once).
-    Returns the written paths."""
+    In a process group only rank 0 writes (the others return at once; on a
+    2-D mesh after the collective gather of the shards). Returns the written
+    paths."""
+    if state.mesh is not None:
+        from fovealseg_torch.parallel.mesh import gather_state_2d
+
+        sd, osd = gather_state_2d(state.model, state.optimizer, state.mesh)
+    else:
+        sd, osd = None, None
     if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
         return []
     os.makedirs(ckpt_dir, exist_ok=True)
-    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    if sd is None:
+        sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        osd = state.optimizer.state_dict()
     files = {kind: {k[len(sub) + 1:]: v for k, v in sd.items() if k.startswith(sub + ".")}
              for kind, sub in SUBMODULE_OF_FILE.items()}
     files["train_state"] = {
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": osd,
         "step": int(state.step),
         "generator": state.generator.get_state(),
         "pool_rng": state.pool_rng.getstate(),
@@ -180,11 +193,24 @@ def has_checkpoint(ckpt_dir: str, epoch) -> bool:
 def load_checkpoint(ckpt_dir: str, epoch, state) -> None:
     """Restore ``state`` in place from ``save_checkpoint``'s files for
     ``epoch`` (a number or 'last'): weights and BN statistics strictly, then
-    the optimizer, the step, the dropout generator and the pool draw."""
-    load_torch_checkpoint(state.model, ckpt_dir, epoch, strict=True)
+    the optimizer, the step, the dropout generator and the pool draw. On a
+    2-D mesh each rank takes its shards of the full tensors."""
     ts = torch.load(os.path.join(ckpt_dir, f"train_state_epoch_{epoch}.pth"),
                     map_location="cpu", weights_only=True)
-    state.optimizer.load_state_dict(ts["optimizer"])
+    osd = ts["optimizer"]
+    if state.mesh is None:
+        load_torch_checkpoint(state.model, ckpt_dir, epoch, strict=True)
+    else:
+        from fovealseg_torch.parallel.mesh import slice_state_2d
+
+        sd = {}
+        for kind, sub in SUBMODULE_OF_FILE.items():
+            part = torch.load(os.path.join(ckpt_dir, f"{kind}_epoch_{epoch}.pth"),
+                              map_location="cpu", weights_only=True)
+            sd.update({f"{sub}.{k}": v for k, v in part.items()})
+        sd, osd = slice_state_2d(state.model, state.optimizer, sd, osd)
+        state.model.load_state_dict(sd, strict=True)
+    state.optimizer.load_state_dict(osd)
     state.step = int(ts["step"])
     state.generator.set_state(ts["generator"])
     state.pool_rng.setstate(_as_tuple(ts["pool_rng"]))

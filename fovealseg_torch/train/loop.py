@@ -184,8 +184,9 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
     epochs refresh only the ``_last`` files), eval every ``eval_per_epoch``,
     the history CSVs after each epoch; ``skip_train_for_eval`` evaluates once
     and stops. ``visual_fn(state, epoch)`` runs on the reference's cadence
-    (``epoch % 10 == 1``) when ``TRAIN.train_eval_visualise``. In a process
-    group only rank 0 writes (see the module's note)."""
+    (``epoch % 10 == 1``) when ``TRAIN.train_eval_visualise``, on every rank
+    (it writes on rank 0). In a process group only rank 0 writes (see the
+    module's note)."""
     import torch.distributed as dist
 
     from fovealseg_torch.utils.observe import SummaryWriter
@@ -213,9 +214,9 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
             else:
                 summary = run()
             log.info("epoch %d train: %s", epoch, json.dumps(summary))
+            if visual_fn is not None and cfg.TRAIN.train_eval_visualise and epoch % 10 == 1:
+                visual_fn(state, epoch)  # every rank: a sharded model's forward is collective
             if main:
-                if visual_fn is not None and cfg.TRAIN.train_eval_visualise and epoch % 10 == 1:
-                    visual_fn(state, epoch)
                 writer.add_scalar("Loss/train", summary["loss"], epoch)
                 writer.add_scalar("Acc/train", summary["acc"], epoch)
                 writer.add_scalar("edge_loss/train", summary["edge_loss"], epoch)

@@ -16,6 +16,7 @@ for the card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import random
 import warnings
@@ -28,19 +29,23 @@ from fovealseg_torch.core import metrics as M
 from fovealseg_torch.core.edges import edge_target_pil_style
 from fovealseg_torch.core.interpolate import resize_area, resize_bilinear, resize_nearest
 from fovealseg_torch.core.warp import grid_sample
+from fovealseg_torch.models.layers import batch_block
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a train step updates: the model (parameters and BN statistics),
     its optimizer, the step count, the dropout generator (on the model's
-    device) and the host generator of the pretrain pool size."""
+    device) and the host generator of the pretrain pool size; ``mesh``
+    (``parallel/mesh.py::Mesh2D``) when the model is sharded over a 2-D
+    mesh (the checkpoints then gather and slice its shards)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     generator: torch.Generator
     pool_rng: random.Random
+    mesh: object = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +92,20 @@ class LossConfig:
         )
 
 
-def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None):
+def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None, reduce=None):
     """out: the ``DeformSegmentation`` forward dict; batch: ``seg_label``
     [B, H, W] binary mask, ``cls_label`` [B] int, optionally ``edge_scale``
     (a float overriding ``TRAIN.edge_loss_scale``) and ``edge_only`` (a bool:
     the step trains on the edge loss alone, the ``fix_seg`` window).
-    Returns (loss, metrics dict of detached 0-d tensors)."""
+    Returns (loss, metrics dict of detached 0-d tensors).
+
+    ``reduce`` (``parallel/mesh.py::BatchReduce``, the 2-D mesh): ``out`` and
+    ``batch`` are this rank's block of the global batch, and the loss and
+    the metrics are the global batch's (Dice's per-class sums, the edge
+    loss's extrema and every mean taken over the data group). A rank's
+    gradient then reaches only its own block, and the ranks' gradients sum
+    to the global one."""
+    avg = (lambda t: t) if reduce is None else reduce.avg
     y = batch["seg_label"].to(torch.float32)
     cls = batch["cls_label"].to(torch.int32).reshape(-1)
     xs = out["xs"]
@@ -112,7 +125,7 @@ def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None):
     # the norm edge loss trains on the saliency before the overrides, so the
     # saliency nets keep learning under gt_gradient / uniform overrides
     xs_edge = out.get("xs_our", xs) if lcfg.edge_norm else xs
-    e_loss = L.edge_loss(xs_edge, xs_target, scale, lcfg.edge_norm)
+    e_loss = L.edge_loss(xs_edge, xs_target, scale, lcfg.edge_norm, reduce=reduce)
 
     grid_y = out["grid_y"].detach()  # the labels below are truncated ids: no gradient
     if lcfg.uniform_bi:
@@ -133,24 +146,25 @@ def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None):
     else:
         loss_pred, loss_gt = pred, gt
 
-    focal = L.focal_loss(loss_pred, loss_gt, lcfg.focal_gamma)
-    dice = L.dice_loss_multiclass(loss_pred, loss_gt)
+    focal = L.focal_loss(loss_pred, loss_gt, lcfg.focal_gamma, reduce=reduce)
+    dice = L.dice_loss_multiclass(loss_pred, loss_gt, reduce=reduce)
     loss = dice + focal
     if lcfg.deform_joint_loss:
         loss = loss + e_loss
     if lcfg.entropy_reg_weight:
         p_flat = xs.reshape(xs.shape[0], -1)
         ent = -torch.sum(p_flat * torch.log(p_flat + 1e-12), dim=-1)
-        loss = loss - lcfg.entropy_reg_weight * torch.mean(ent)
+        loss = loss - lcfg.entropy_reg_weight * avg(torch.mean(ent))
 
     with torch.no_grad():
-        acc = M.pixel_acc(loss_pred, loss_gt, bg)
+        acc = avg(M.pixel_acc(loss_pred, loss_gt, bg))
     if batch.get("edge_only"):
         # the fix_seg window: the step trains on the edge loss alone and logs
         # the (degenerate) edge accuracy, as the reference does
         loss = e_loss
-        tgt_acc = L.minmax_normalize(xs_target) if lcfg.edge_norm else xs_target
-        acc = torch.mean((torch.floor(tgt_acc) == 0.0).to(torch.float32))
+        tgt_acc = (L.minmax_normalize(xs_target, reduce=reduce) if lcfg.edge_norm
+                   else xs_target)
+        acc = avg(torch.mean((torch.floor(tgt_acc) == 0.0).to(torch.float32)))
 
     with torch.no_grad():
         mets = {
@@ -159,9 +173,9 @@ def compute_losses(out: dict, batch: dict, lcfg: LossConfig, edge_scale=None):
             "focal_loss": focal.detach(),
             "edge_loss": e_loss.detach(),
             "acc": acc.detach(),
-            "acc_bin_fg": M.fg_bin_pixel_acc(loss_pred, loss_gt, bg),
-            "acc_cls_fbg": M.fbg_cls_pixel_acc(loss_pred, loss_gt, bg),
-            "acc_bin_fbg": M.fbg_bin_pixel_acc(loss_pred, loss_gt, bg),
+            "acc_bin_fg": avg(M.fg_bin_pixel_acc(loss_pred, loss_gt, bg)),
+            "acc_cls_fbg": avg(M.fbg_cls_pixel_acc(loss_pred, loss_gt, bg)),
+            "acc_bin_fbg": avg(M.fbg_bin_pixel_acc(loss_pred, loss_gt, bg)),
         }
     return loss, mets
 
@@ -213,7 +227,7 @@ def ddp(module: torch.nn.Module, group, find_unused: bool):
                                        find_unused_parameters=find_unused)
 
 
-def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False, group=None):
+def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False, group=None, mesh=None):
     """Returns ``train_step(state, batch) -> metrics``, which updates
     ``state`` in place. ``schedules`` maps a group's ``schedule`` key to
     ``step -> lr factor`` (``train/optim.py``).
@@ -227,13 +241,33 @@ def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False, group=Non
     the loss run under DDP, made around ``state.model`` at the first call,
     which averages the gradients over the group (and searches for unreached
     parameters only under ``lcfg.unused_parameters``); the metrics are
-    averaged over the group too."""
+    averaged over the group too.
+
+    ``mesh`` (a ``parallel/mesh.py::Mesh2D``, the model sharded by
+    ``shard_model_2d``): the counterpart of the JAX package's
+    ``make_gspmd_train_step``, the one-process step on the global batch.
+    ``batch`` is this data index's block; dropout draws the global batch's
+    mask; the loss and the metrics are the global batch's
+    (``compute_losses(..., reduce=)``); the gradients are summed over the
+    data group (``parallel/mesh.py::sum_gradients``) and the optimizer
+    updates this rank's shards."""
+    from fovealseg_torch.parallel import mesh as mesh_lib
     from fovealseg_torch.train.optim import set_learning_rates
 
     wrapped: dict = {}
 
     def train_step(state: TrainState, batch: dict) -> dict:
         set_learning_rates(state.optimizer, schedules, state.step)
+        if mesh is not None:
+            with batch_block(mesh.data_index, mesh.dp):
+                out = _forward(state.model, batch, not fix_bn, True, state.generator)
+            loss, mets = compute_losses(out, batch, lcfg, reduce=mesh.reduce)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            mesh_lib.sum_gradients(state.model, mesh.data_group)
+            state.optimizer.step()
+            state.step += 1
+            return mets
         if group is None:
             out = _forward(state.model, batch, not fix_bn, True, state.generator)
             loss, mets = compute_losses(out, batch, lcfg)
@@ -251,41 +285,47 @@ def make_train_step(lcfg: LossConfig, schedules, fix_bn: bool = False, group=Non
     return train_step
 
 
-def make_forward_only_step(lcfg: LossConfig, fix_bn: bool = False, group=None):
+def make_forward_only_step(lcfg: LossConfig, fix_bn: bool = False, group=None, mesh=None):
     """``MODEL.gt_gradient_intrinsic_only``: the training forward and the
     metrics, no backward and no update (BN running statistics still update
     unless ``fix_bn``); the step count advances. With a process group the
-    metrics are averaged over it."""
+    metrics are averaged over it; with a 2-D ``mesh`` they are the global
+    batch's."""
 
     def forward_only_step(state: TrainState, batch: dict) -> dict:
-        out = _forward(state.model, batch, not fix_bn, False, state.generator)
-        _, mets = compute_losses(out, batch, lcfg)
+        with (batch_block(mesh.data_index, mesh.dp) if mesh is not None
+              else contextlib.nullcontext()):
+            out = _forward(state.model, batch, not fix_bn, False, state.generator)
+        _, mets = compute_losses(out, batch, lcfg, reduce=None if mesh is None else mesh.reduce)
         state.step += 1
         return mets if group is None else mean_over_ranks(mets, group)
 
     return forward_only_step
 
 
-def make_eval_step(lcfg: LossConfig, group=None):
+def make_eval_step(lcfg: LossConfig, group=None, mesh=None):
     """Warped-domain eval step: the eval forward and the loss/accuracy
-    metrics, without gradients; with a process group, averaged over it."""
+    metrics, without gradients; with a process group, averaged over it; with
+    a 2-D ``mesh`` (the counterpart of ``make_gspmd_eval_step``), the global
+    batch's."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict:
         out = _forward(state.model, batch, False, False, state.generator)
-        _, mets = compute_losses(out, batch, lcfg)
+        _, mets = compute_losses(out, batch, lcfg, reduce=None if mesh is None else mesh.reduce)
         return mets if group is None else mean_over_ranks(mets, group)
 
     return eval_step
 
 
 def init_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer, seed: int,
-               fix_bn: bool = False) -> TrainState:
+               fix_bn: bool = False, mesh=None) -> TrainState:
     """A fresh state at step 0: the model put in train mode (eval mode under
     ``fix_bn``), the dropout generator on the model's device seeded with
-    ``seed``, the pool draw's host generator too."""
+    ``seed``, the pool draw's host generator too. ``mesh``: the 2-D mesh the
+    model is sharded over (every rank keeps the same generator)."""
     model.train(not fix_bn)
     device = next(model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return TrainState(model, optimizer, 0, gen, random.Random(seed))
+    return TrainState(model, optimizer, 0, gen, random.Random(seed), mesh)

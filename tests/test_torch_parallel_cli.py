@@ -8,7 +8,7 @@
   0``): each rank serves its contiguous block of every micro-batch, and
   eval-mode BN makes a frame's labels independent of its neighbours;
 * the refusals: a batch or micro-batch that does not divide by the ranks,
-  and a ``_nonsyn`` saliency net (batch statistics at serving);
+  and ``--mesh`` with ``--spatial``;
 * ``--data``: two ranks train on a cooked LVIS set.
 """
 
@@ -122,9 +122,9 @@ def test_mesh_serving_is_bit_equal_to_one_process(tmp_path):
 @pytest.mark.parametrize("flags,opts,error", [
     (["--batch", "3", "--mesh", "2"], [], SystemExit),
     (["--batch", "6", "--microbatch", "3", "--mesh", "2"], [], SystemExit),
-    (["--batch", "4", "--mesh", "2"], ["MODEL.saliency_net", "resnet18_nonsyn"],
-     NotImplementedError)])
+    (["--batch", "4", "--mesh", "2", "--spatial", "2"], [], SystemExit)])
 def test_mesh_serving_refusals(flags, opts, error):
-    """Refused before any rank starts."""
+    """Refused before any rank starts (a ``_nonsyn`` saliency net is served
+    with ``--mesh`` since the 2-D slice: ``test_torch_parallel_spatial.py``)."""
     with pytest.raises(error):
         infer_cli.main(SERVE_FLAGS + flags + TINY + opts)

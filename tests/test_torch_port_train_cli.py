@@ -179,7 +179,7 @@ def cook_lvis(tmp_path, n_train, **json_kw):
 
 
 @pytest.mark.parametrize("extra", [["--gpus", "0,1", "--backend", "nccl"],
-                                   ["TPU.mesh_shape", "(2,2)"],
+                                   ["--gpus", "0,1", "TPU.mesh_shape", "(2,2)"],
                                    ["TPU.quantize", "int8"], ["TPU.conv_pack", "True"],
                                    ["--data", "cooked"], ["--data", "too small"],
                                    ["--data", "class out of range"]])
@@ -187,6 +187,9 @@ def test_train_cli_refuses_what_it_does_not_run(tmp_path, extra):
     """Unported options raise NotImplementedError. ``--gpus`` naming two
     devices trains data-parallel (``tests/test_torch_parallel_cli.py``);
     what it refuses is NCCL between CPU ranks, a ValueError raised before
+    any rank starts. ``TPU.mesh_shape`` trains on the 2-D mesh
+    (``tests/test_torch_parallel_2d.py``); what it refuses is a ``--gpus``
+    list that does not name one device per rank, a ValueError raised before
     any rank starts. ``--data`` (refused until the readers were ported)
     trains on a cooked set: 3 samples at batch 2 reconcile
     ``TRAIN.epoch_iters`` 2 to one step; a set smaller than the global batch
@@ -216,5 +219,7 @@ def test_train_cli_refuses_what_it_does_not_run(tmp_path, extra):
                 train_cli.main(args)
         return
     flags, opts = (extra, []) if extra[0].startswith("--") else ([], extra)
-    with pytest.raises(ValueError if "--backend" in extra else NotImplementedError):
+    if "TPU.mesh_shape" in extra:  # the flag, then the option
+        flags, opts = extra[:2], extra[2:]
+    with pytest.raises(ValueError if extra[0] == "--gpus" else NotImplementedError):
         train_cli.main(flags + FLAGS + TINY + ["DIR", str(tmp_path), *opts])

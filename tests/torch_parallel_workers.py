@@ -192,3 +192,229 @@ def block_sum(r, arr):
 def sleep_forever(r):
     while True:
         time.sleep(1)
+
+
+# --------------------------------------------------------------------------
+# the 2-D (data, model) mesh and row-partitioned serving
+
+
+def tiny_model(sd, config):
+    """A ``DeformSegmentation`` of ``config`` holding copies of ``sd``'s
+    tensors, built on the meta device (PyTorch's own init of ~29 M
+    parameters costs a rank a second or two)."""
+    from fovealseg_torch.models.deform_module import DeformSegmentation
+
+    with torch.device("meta"):
+        model = DeformSegmentation(config, device="meta")
+    model.load_state_dict({k: v.clone() for k, v in sd.items()}, strict=True, assign=True)
+    model.device = torch.device("cpu")
+    return model
+
+
+def tiny_state(sd, cfg, mesh=None, seed: int = 0):
+    """The tiny model from ``sd``, sharded over ``mesh`` when given, its
+    optimizer and a fresh state (the dropout generator seeded with
+    ``seed``)."""
+    from fovealseg_torch.models.deform_module import DeformConfig
+    from fovealseg_torch.parallel.mesh import shard_model_2d
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import create_optimizer
+
+    model = tiny_model(sd, DeformConfig.from_cfg(cfg))
+    sharded = shard_model_2d(model, mesh) if mesh is not None else 0
+    state = S.init_state(model, create_optimizer(cfg, model), seed, mesh=mesh)
+    return state, sharded
+
+
+def digest(sd: dict) -> str:
+    """A hash of the bytes of every tensor of ``sd``, in key order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def one_step(sd, batch, opts, mesh=None, dropout: bool = True) -> dict:
+    """One train step of the tiny model from ``sd`` on the global ``batch``
+    (this data index's block on a mesh), edge scale 100: the metrics, the
+    updated state dict (gathered whole on a mesh; on a mesh only the first
+    rank returns it, every rank its digest) and the layers sharded."""
+    from fovealseg_torch.models import layers
+    from fovealseg_torch.parallel.mesh import gather_state_2d, shard_batch
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import make_stage_schedules
+
+    cfg = port_cfg(*opts)
+    state, sharded = tiny_state(sd, cfg, mesh)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if mesh is not None:
+        tb = shard_batch(tb, mesh.data_index, mesh.dp)
+    step = S.make_train_step(S.LossConfig.from_cfg(cfg), make_stage_schedules(cfg), mesh=mesh)
+    forward = layers.Dropout.forward
+    if not dropout:
+        layers.Dropout.forward = lambda self, x: x
+    try:
+        mets = step(state, {**tb, "edge_scale": 100.0})
+    finally:
+        layers.Dropout.forward = forward
+    if mesh is None:
+        out_sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    else:
+        out_sd = gather_state_2d(state.model, state.optimizer, mesh)[0]
+    first = mesh is None or (mesh.data_index, mesh.model_index) == (0, 0)
+    return {"mets": {k: float(v) for k, v in mets.items()}, "sd": out_sd if first else None,
+            "digest": digest(out_sd), "sharded": sharded}
+
+
+def _mismatches(got: dict, ref: dict, cut=None) -> list:
+    """The keys of ``got`` and ``ref`` whose values differ (tensors bit for
+    bit), or that one of them lacks; ``cut(key, ref value, got value)``
+    slices a full reference to a shard."""
+    bad = sorted(set(ref) ^ set(got))
+    for k in sorted(got.keys() & ref.keys()):
+        t, r = got[k], ref[k] if cut is None else cut(k, ref[k], got[k])
+        if torch.is_tensor(t):
+            if not (torch.is_tensor(r) and t.shape == r.shape and torch.equal(t, r)):
+                bad.append(k)
+        elif t != r:
+            bad.append(k)
+    return bad
+
+
+def mesh_2d(r, sd, batch, opts, root):
+    """Every 2-D case of ``tests/test_torch_parallel_2d.py`` on four ranks, in
+    three rounds:
+
+    * dp 2 x mp 2, one SGD step with dropout on, and one with dropout off
+      (against the JAX step);
+    * dp 1 x mp 2 on ranks 0-1 beside dp 2 x mp 1 on ranks 2-3;
+    * on ranks 0-1, checkpoints at dp 1 x mp 2 with Adam: rank 0 writes a
+      one-process checkpoint (one step) into ``root/one``; it loads into the
+      mesh (this rank's shards returned); one 2-D step; its checkpoint
+      written (by rank 0, gathered) into ``root/two`` and loaded back into a
+      fresh 2-D state (equal to the state that wrote it, shard for shard).
+      Beside it, on ranks 2-3, dp 2 x mp 1 with the gradients averaged over
+      the data group instead of summed (the fault the test must see)."""
+    from fovealseg_torch.parallel import mesh as mesh_lib
+    from fovealseg_torch.parallel.mesh import make_mesh_2d, shard_batch
+    from fovealseg_torch.train import checkpoint as ckpt
+    from fovealseg_torch.train import step as S
+    from fovealseg_torch.train.optim import make_stage_schedules
+
+    grid = make_mesh_2d(2, 2)
+    out = {"place": (grid.data_index, grid.model_index)}
+    out["2x2"] = one_step(sd, batch, opts, grid)
+    out["2x2_no_dropout"] = one_step(sd, batch, opts, grid, dropout=False)
+    # every rank makes every group, members or not
+    wide = make_mesh_2d(1, 2, ranks=[0, 1])
+    tall = make_mesh_2d(2, 1, ranks=[2, 3])
+    if r.rank >= 2:
+        out["2x1"] = one_step(sd, batch, opts, tall)
+        total = mesh_lib.sum_gradients
+
+        def mean_gradients(model, group):
+            total(model, group)
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(dist.get_world_size(group))
+
+        mesh_lib.sum_gradients = mean_gradients
+        try:
+            out["2x1_mean"] = one_step(sd, batch, opts, tall)
+        finally:
+            mesh_lib.sum_gradients = total
+        return out
+    out["1x2"] = one_step(sd, batch, opts, wide)
+
+    cfg = port_cfg(*opts, "TRAIN.optim", "adam")
+    tb = {**{k: torch.from_numpy(v) for k, v in batch.items()}, "edge_scale": 100.0}
+    schedules = make_stage_schedules(cfg)
+    lcfg = S.LossConfig.from_cfg(cfg)
+    one_dir, two_dir = os.path.join(root, "one"), os.path.join(root, "two")
+    if r.rank == 0:
+        one, _ = tiny_state(sd, cfg)
+        S.make_train_step(lcfg, schedules)(one, tb)
+        ckpt.save_checkpoint(one_dir, 1, one, only_last=True)
+        del one
+    dist.barrier(wide.model_group)
+    # the one-process checkpoint into the mesh: this rank's row blocks
+    state, _ = tiny_state(sd, cfg, wide)
+    ckpt.load_checkpoint(one_dir, "last", state)
+    files = {}
+    for kind, sub in ckpt.SUBMODULE_OF_FILE.items():
+        part = torch.load(os.path.join(one_dir, f"{kind}_epoch_last.pth"), weights_only=True)
+        files.update({f"{sub}.{k}": v for k, v in part.items()})
+    full_opt = torch.load(os.path.join(one_dir, "train_state_epoch_last.pth"),
+                          weights_only=True)["optimizer"]["state"]
+    m = wide.model_index
+
+    def cut(key, full, local):
+        if not torch.is_tensor(full) or full.shape == local.shape:
+            return full
+        n = local.shape[0]
+        assert full.shape[0] == 2 * n, key
+        return full[m * n:(m + 1) * n]
+
+    out["sharded_keys"] = sorted(k for k, v in state.model.state_dict().items()
+                                 if v.shape != files[k].shape)
+    out["from_one"] = _mismatches(state.model.state_dict(), files, cut)
+    local_opt = state.optimizer.state_dict()["state"]
+    out["from_one_optimizer"] = ([] if local_opt.keys() == full_opt.keys() else ["keys"]) + [
+        (i, n) for i in local_opt for n in local_opt[i]
+        if _mismatches({n: local_opt[i][n]}, {n: full_opt[i][n]}, cut)]
+    out["from_one_step"] = state.step
+    # one step on the mesh; its checkpoint (rank 0 writes the gathered tensors)
+    S.make_train_step(lcfg, schedules, mesh=wide)(state, shard_batch(tb, 0, 1))
+    out["written"] = ckpt.save_checkpoint(two_dir, 2, state, only_last=True)
+    sd2, osd2 = mesh_lib.gather_state_2d(state.model, state.optimizer, wide)
+    # ... back into the mesh: the shards that wrote it
+    again, _ = tiny_state(sd, cfg, wide)
+    ckpt.load_checkpoint(two_dir, "last", again)
+    out["reload"] = _mismatches(again.model.state_dict(), state.model.state_dict())
+    a, b = again.optimizer.state_dict()["state"], state.optimizer.state_dict()["state"]
+    out["reload_optimizer"] = [(i, n) for i in b for n in b[i]
+                               if _mismatches({n: a[i][n]}, {n: b[i][n]})]
+    # ... and into one process: the gathered tensors
+    if r.rank == 0:
+        single, _ = tiny_state(sd, cfg)
+        ckpt.load_checkpoint(two_dir, "last", single)
+        out["into_one_step"] = single.step
+        out["into_one"] = _mismatches(single.model.state_dict(), sd2)
+        got = single.optimizer.state_dict()["state"]
+        out["into_one_optimizer"] = [(i, n) for i in osd2["state"] for n in osd2["state"][i]
+                                     if _mismatches({n: got[i][n]}, {n: osd2["state"][i][n]})]
+    return out
+
+
+def spatial_serve(r, sd, x, f, cfg_kw):
+    """The tiny model from ``sd`` row-partitioned over the four ranks and over
+    ranks 0-1 (a group of two; ranks 2-3 wait): the eval forward's ``pred``
+    and ``infer``'s scores and labels, with the exchanges of one frame batch.
+    oneDNN is off: it picks a strided conv's algorithm by the input's
+    height, so a row block would round unlike the whole image."""
+    from fovealseg_torch.models.deform_module import DeformConfig
+    from fovealseg_torch.parallel import spatial
+
+    torch.backends.mkldnn.enabled = False
+    model = tiny_model(sd, DeformConfig(**cfg_kw))
+    pair = dist.new_group([0, 1])
+    out = {}
+    xt, ft = torch.from_numpy(x), torch.from_numpy(f)
+    for name, group in (("4", dist.group.WORLD), ("2", pair)):
+        if r.rank >= 2 and name == "2":
+            continue
+        model.set_spatial(group)
+        before = spatial.exchanges
+        with torch.no_grad():
+            res = {"pred_forward": model(xt, ft)["pred"]}
+            n = spatial.exchanges - before
+            res.update({k: v for k, v in model.infer(xt, ft).items()
+                        if k in ("pred", "pred_sampled")})
+            res["pred_label"] = model.infer(xt, ft, argmax_labels=True)["pred_label"]
+        res["exchanges_forward"] = n
+        out[name] = res
+    dist.barrier()
+    return out
