@@ -120,6 +120,23 @@ Phases (any failure exits non-zero):
         decide them; (c) the serving CLI with ``--mesh 2 --backend gloo``
         and ``resnet18_nonsyn`` (b8) against one process's model on the
         same frames: at most 100 decided pixels differ;
+     i. the serving artifact and the zoo: (a) the flagship exported through
+        ``cli.export`` at b8 (f32 and bf16 argmax, f32 scores), each
+        program loaded and run by a process that imports only
+        ``fovealseg_torch.ops`` and, in this process, beside the live
+        ``infer``: outputs bit-equal, K1 (or K2 and K5) counted once per
+        call by the operators' CUDA kernels, per call the host clock, CUDA
+        events, device-busy ms and kernels; ``--format torch`` read back
+        strictly, equal to the model's state dict; (b) the zoo at published
+        widths, b2 f32 and bf16: the CSAIL ADE20K pairs
+        (resnet101dilated + ppm_deepsup, mobilenetv2dilated + c1_deepsup,
+        resnet50 + upernet; 150 classes, 512x683) and SegHRNet-W48 (19
+        classes, 512x1024), each f32 module against the host on a small
+        input (TF32 off, 1e-4); (c) ``BucketedDeform`` serving the
+        flagship's weights at 512x683 and 1024x1365, K1 once per call,
+        labels bit-equal to the host recompute; the registered operators'
+        cost per call (K1 and K5 at C = 1 through the wrapper and through
+        the CUDA kernel function, CUDA events);
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -2841,6 +2858,399 @@ def mesh_and_spatial_path(card, device, out_dir, b1):
     return {"mesh_2d": mesh, "spatial": serving, "phase_3h_s": seconds}, counts
 
 
+# --------------------------------------------------------------- phase 3i
+
+EXPORT_OPTS = ["MODEL.gaussian_radius", "45", "TRAIN.saliency_input_size", "(80,80)",
+               "TRAIN.task_input_size", "(80,80)"]
+# label: (extra CLI flags, TPU.compute_dtype, the kernels one call launches)
+EXPORTS = {"argmax float32": ([], "float32", ("jfa_class",)),
+           "argmax bfloat16": ([], "bfloat16", ("jfa_class",)),
+           "scores float32": (["--scores"], "float32", ("jfa_relpay", "row_gather"))}
+ARTIFACT_CALLS = 5  # timed calls of each program and of the live infer, in turn
+# A process that imports fovealseg_torch.ops and nothing else of the repository
+# loads one artifact, runs it once and saves what it returns
+LOAD_ONLY_OPS = """
+import json, sys, time, numpy as np, torch
+import fovealseg_torch.ops
+from fovealseg_torch.ops import gather, jfa
+counters = {"jfa_class": jfa.nearest_class, "jfa_relpay": jfa.nearest_payload_packed,
+            "row_gather": gather.row_gather}
+x, f = (torch.from_numpy(np.load(p)).cuda() for p in sys.argv[1:3])
+t = time.perf_counter()
+serve = torch.export.load(sys.argv[3]).module()
+load_s = time.perf_counter() - t
+with torch.no_grad():
+    out = serve(x, f)
+torch.cuda.synchronize()
+np.save(sys.argv[3] + ".out.npy", out.cpu().numpy())
+mods = sorted(m for m in sys.modules if m.startswith(("fovealseg", "jax", "flax")))
+print(json.dumps({"launches": {k: c.launches for k, c in counters.items()}, "load_s": load_s,
+                  "first_call_s": time.perf_counter() - t - load_s, "modules": mods}))
+"""
+# The CSAIL semantic-segmentation-pytorch ADE20K configurations (its config/
+# ade20k-*.yaml): encoder, decoder, fc_dim; and HRNet-W48 on a Cityscapes frame
+ZOO_PAIRS = {"resnet101dilated-ppm_deepsup": ("resnet101dilated", "ppm_deepsup", 2048),
+             "mobilenetv2dilated-c1_deepsup": ("mobilenetv2dilated", "c1_deepsup", 320),
+             "resnet50-upernet": ("resnet50", "upernet", 2048)}
+ADE_HW, CITYSCAPES_HW = (512, 683), (512, 1024)
+BUCKET_SIZES = ((512, 683), (1024, 1365))
+
+
+def frames_hw(batch: int, hw, seed: int, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (batch, *hw, 3)).astype(np.float32)
+    f = rng.uniform(0.2, 0.8, (batch, 2)).astype(np.float32)
+    return torch.from_numpy(x).to(device), torch.from_numpy(f).to(device)
+
+
+def call_numbers(fn, n: int) -> dict:
+    """Per call of ``fn``: the host clock (median, ending in a synchronise),
+    CUDA events around one call (median), and, over ``n`` calls under
+    torch.profiler, the device-busy ms and the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovealseg_torch.tools.profile_gather import events_ms
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    ev = events_ms(fn, n, warmup=0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    wall = statistics.median(walls)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0) + 1 / n
+    return dict(wall_ms=wall, events_ms=ev, device_busy_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall), kernels_per_call=len(kernels) / n,
+                by_name=by_name)
+
+
+def kernel_difference(a: dict, b: dict, top: int = 8) -> dict:
+    """The kernels per call of ``a`` less those of ``b`` ({name: count}), by
+    name, the largest differences first."""
+    diff = {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b)}
+    return dict(sorted(((k, v) for k, v in diff.items() if v), key=lambda kv: -abs(kv[1]))[:top])
+
+
+def export_cfg(dtype: str):
+    from fovealseg_torch.configs import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.merge_from_file("fovealseg_torch/configs/deform.yaml")
+    cfg.merge_from_list(EXPORT_OPTS + ["TPU.compute_dtype", dtype])
+    return cfg
+
+
+def artifact_path(card, device, out_dir) -> tuple[dict, dict]:
+    """Phase 3i (a): the flagship exported through ``cli.export`` (b8,
+    640x640, random weights from the config's seed) in f32 and bf16 argmax
+    and f32 scores; each program loaded by a process that imports only
+    ``fovealseg_torch.ops`` and, in this process, run beside the live
+    ``infer`` on the same frames: bit-equal outputs, the operators' launch
+    counts, and per call the host clock, CUDA events, device-busy ms and
+    kernels. ``--format torch`` read back strictly."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.cli import export
+    from fovealseg_torch.cli.infer import build_model
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+    from fovealseg_torch.train.checkpoint import load_torch_checkpoint
+
+    x, f = frames(8, CANVAS, SEED + 40, device)
+    np.save(f"{out_dir}/x.npy", x.cpu().numpy())
+    np.save(f"{out_dir}/f.npy", f.cpu().numpy())
+    res, counts_by_path, paths, programs, procs = {}, {}, {}, {}, {}
+    t_load = time.perf_counter()
+    for label, (flags, dt, _) in EXPORTS.items():
+        paths[label] = f"{out_dir}/{label.replace(' ', '_')}.pt2"
+        t = time.perf_counter()
+        summary = export.main(["--cfg", "fovealseg_torch/configs/deform.yaml", "--out",
+                               paths[label], "--batch", "8", "--canvas", str(CANVAS),
+                               "--allow-random", *flags, *EXPORT_OPTS, "TPU.compute_dtype", dt])
+        res[label] = dict(export_s=time.perf_counter() - t, bytes=summary["bytes"],
+                          ops=summary["ops"], inputs=summary["inputs"],
+                          outputs=summary["outputs"])
+        programs[label] = summary["program"]
+        log(f"{label}: exported in {res[label]['export_s']:.1f} s (save included)")
+        # loaded by its own process while the next program is traced (host work)
+        procs[label] = subprocess.Popen([sys.executable, "-c", LOAD_ONLY_OPS, f"{out_dir}/x.npy",
+                                         f"{out_dir}/f.npy", paths[label]],
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # while the programs load: --format torch, read back strictly into a fresh model
+    live = {dt: build_model(export_cfg(dt), device) for dt in ("float32", "bfloat16")}
+    ckpt = f"{out_dir}/torch_format"
+    export.main(["--cfg", "fovealseg_torch/configs/deform.yaml", "--out", ckpt, "--format",
+                 "torch", "--allow-random", *EXPORT_OPTS, "TPU.compute_dtype", "float32"])
+    back = DeformSegmentation(DeformConfig.from_cfg(export_cfg("float32")), device=device)
+    load_torch_checkpoint(back, ckpt, "last", strict=True)
+    want, got = live["float32"].state_dict(), back.state_dict()
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("--format torch files differ from the model's state dict")
+    log(f"--format torch: {len(os.listdir(ckpt))} files loaded back strictly, equal to the "
+        f"model's state dict ({len(want)} entries)")
+    del back, got
+    loaded = {}
+    for label, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading {label} in a fresh process failed:\n{err}")
+        loaded[label] = json.loads(out.strip().splitlines()[-1])
+        mods = loaded[label].pop("modules")
+        if not all(m == "fovealseg_torch" or m.startswith("fovealseg_torch.ops")
+                   for m in mods):
+            raise AssertionError(f"the process loading {label} imported {mods}")
+    log(f"three processes importing only {mods} loaded and ran the three programs, "
+        f"all done {time.perf_counter() - t_load:.1f} s after the first export began")
+    for label, (flags, dt, kernels) in EXPORTS.items():
+        key = "pred_sampled" if flags else "pred_label"
+        model = live[dt]
+        want = model.infer(x, f, argmax_labels=not flags)[key]
+        sub_out = torch.from_numpy(np.load(paths[label] + ".out.npy"))
+        sub = loaded[label]
+        sub_counts = sub["launches"]
+        if sub_counts != {k: int(k in kernels) for k in sub_counts}:
+            raise AssertionError(f"{label}: the loading process counted {sub_counts}")
+        program = programs.pop(label).module()
+        reset_counts()
+        with torch.no_grad():
+            got = program(x, f)
+            art = call_numbers(lambda: program(x, f), ARTIFACT_CALLS)
+        counts = read_counts()
+        calls = 2 + 3 * ARTIFACT_CALLS  # two warm-ups, host clock, events, profiled
+        check_counts(f"the {label} program", counts,
+                     {**dict.fromkeys(counts, 0), **dict.fromkeys(kernels, calls)})
+        counts_by_path[f"export_{label.replace(' ', '_')}"] = counts
+        for name, out in (("this process", got), ("the loading process", sub_out)):
+            if out.shape != want.shape or not torch.equal(out.cpu(), want.cpu()):
+                raise AssertionError(f"{label}: the program's output in {name} != live infer")
+        live_numbers = call_numbers(lambda: model.infer(x, f, argmax_labels=not flags),
+                                    ARTIFACT_CALLS)
+        res[label].update(program=art, live=live_numbers, bit_equal=True,
+                          loading_process=sub,
+                          extra_kernels=kernel_difference(art.pop("by_name"),
+                                                          live_numbers.pop("by_name")))
+        log(f"{label} b8: program {res[label]['bytes'] / 1e6:.1f} MB, exported in "
+            f"{res[label]['export_s']:.1f} s, loaded in {sub['load_s']:.1f} s by the fresh "
+            f"process, ops {res[label]['ops']}; per call program "
+            f"{json.dumps(art)} | live infer {json.dumps(live_numbers)}; bit-equal on {card}")
+        log(f"{label}: kernels per call, program less live, by name: "
+            f"{json.dumps(res[label]['extra_kernels'])}")
+        del program, got
+        os.remove(paths[label])
+    del live
+    torch.cuda.empty_cache()
+    return res, counts_by_path
+
+
+def zoo_modules(enc, dec, fc_dim, dtype, device):
+    import torch
+
+    from fovealseg_torch.models import build_backbone, build_legacy_decoder
+    from fovealseg_torch.models.layers import init_weights
+
+    gen = torch.Generator().manual_seed(SEED)
+    backbone = init_weights(build_backbone(enc, dtype=dtype), gen)
+    decoder = init_weights(build_legacy_decoder(dec, 150, fc_dim, use_softmax=True, dtype=dtype),
+                           gen)
+    return backbone.to(device).eval(), decoder.to(device).eval()
+
+
+def zoo_against_host(label, make, x) -> float:
+    """The f32 module on the card (TF32 off) against the same weights on the
+    host on the small input ``x``: the largest difference over the largest
+    magnitude, of every output; at most 1e-4, phase 3e's tolerance."""
+    import copy
+
+    import torch
+
+    host = make()
+    card = copy.deepcopy(host).cuda()
+    prev = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
+    try:
+        with torch.no_grad():
+            ref, got = host(x), card(x.cuda())
+    finally:
+        torch.backends.cudnn.conv.fp32_precision = prev
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    got = got if isinstance(got, tuple) else (got,)
+    err = max(float((g.cpu() - r).abs().max() / r.abs().max()) for g, r in zip(got, ref))
+    if not err <= 1e-4:
+        raise AssertionError(f"{label}: card and host differ by {err:.3g} on the small input")
+    return err
+
+
+def zoo_path(card, device) -> dict:
+    """Phase 3i (b): the zoo at published widths on the card, b2 in f32 and
+    bf16: the three ADE20K pairs on 512x683 frames (150 classes, the
+    decoders' softmax at the frame's size) and SegHRNet-W48 on a 512x1024
+    frame (19 classes, logits at 1/4); per call the host clock, device-busy
+    ms and kernels; each f32 module against the host on a small input."""
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.models import get_seg_model
+    from fovealseg_torch.models.layers import init_weights
+
+    res = {}
+    rng = np.random.default_rng(SEED + 41)
+    x_ade = torch.from_numpy(rng.uniform(0, 1, (2, 3, *ADE_HW)).astype(np.float32)).to(device)
+    x_city = torch.from_numpy(rng.uniform(0, 1, (2, 3, *CITYSCAPES_HW)).astype(np.float32)
+                              ).to(device)
+    small = torch.from_numpy(rng.uniform(0, 1, (2, 3, 64, 80)).astype(np.float32))
+    for name, (enc, dec, fc_dim) in ZOO_PAIRS.items():
+        for dt in ("float32", "bfloat16"):
+            backbone, decoder = zoo_modules(enc, dec, fc_dim, getattr(torch, dt), device)
+            with torch.no_grad():
+                probs = decoder(backbone(x_ade), ADE_HW)
+                numbers = call_numbers(lambda: decoder(backbone(x_ade), ADE_HW), 3)
+            numbers.pop("by_name")
+            if probs.shape != (2, 150, *ADE_HW) or not torch.isfinite(probs).all() or float(
+                    (probs.sum(1) - 1).abs().max()) > 1e-3:
+                raise AssertionError(f"{name} {dt}: probabilities {tuple(probs.shape)} wrong")
+            numbers["params"] = sum(p.numel() for p in backbone.parameters()) + sum(
+                p.numel() for p in decoder.parameters())
+            res[f"{name} {dt}"] = numbers
+            log(f"zoo {name} {dt} b2 {ADE_HW}: {json.dumps(numbers)} on {card}")
+            del backbone, decoder, probs
+        def make(enc=enc, dec=dec, fc_dim=fc_dim):
+            backbone, decoder = zoo_modules(enc, dec, fc_dim, torch.float32, "cpu")
+            decoder.use_softmax = False
+            return torch.nn.Sequential(backbone, decoder)
+        res[f"{name} card_vs_host"] = zoo_against_host(name, make, small)
+    for dt in ("float32", "bfloat16"):
+        model = init_weights(get_seg_model(19, dtype=getattr(torch, dt)),
+                             torch.Generator().manual_seed(SEED)).to(device).eval()
+        with torch.no_grad():
+            logits = model(x_city)
+            numbers = call_numbers(lambda: model(x_city), 3)
+        numbers.pop("by_name")
+        if logits.shape != (2, 19, 128, 256) or not torch.isfinite(logits).all():
+            raise AssertionError(f"SegHRNet-W48 {dt}: logits {tuple(logits.shape)}")
+        numbers["params"] = sum(p.numel() for p in model.parameters())
+        res[f"seg_hrnet_w48 {dt}"] = numbers
+        log(f"zoo SegHRNet-W48 {dt} b2 {CITYSCAPES_HW}: {json.dumps(numbers)} on {card}")
+        del model, logits
+    res["seg_hrnet_w48 card_vs_host"] = zoo_against_host(
+        "SegHRNet-W48", lambda: init_weights(get_seg_model(19), torch.Generator().manual_seed(
+            SEED)).eval(), small)
+    log(f"zoo card vs host (TF32 off, small input): "
+        f"{json.dumps({k: v for k, v in res.items() if k.endswith('card_vs_host')})}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def bucketed_path(card, device) -> tuple[dict, dict]:
+    """Phase 3i (c): the flagship's f32 weights served by ``BucketedDeform``
+    (``TRAIN.dynamic_task_input (80,80)``) at two raw sizes, b2 each: the
+    task geometry of each size, K1 once per call, and the labels bit-equal
+    to a host recompute through the plain versions."""
+    import torch
+
+    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_argmax_scatter
+    from fovealseg_torch.models.bucketed import BucketedDeform
+
+    model = flagship(torch.float32, device)
+    bucketed = BucketedDeform(model, (80, 80))
+    res = {}
+    reset_counts()
+    outs = {}
+    for i, hw in enumerate(BUCKET_SIZES):
+        x, f = frames_hw(2, hw, SEED + 42 + i, device)
+        outs[hw] = bucketed.infer(x, f, argmax_labels=True)
+        t = time.perf_counter()
+        bucketed.infer(x, f, argmax_labels=True)
+        torch.cuda.synchronize()
+        res[f"{hw[0]}x{hw[1]}"] = dict(task_hw=list(bucketed.module_for(hw).config.task_hw),
+                                       wall_ms=(time.perf_counter() - t) * 1e3)
+    counts = read_counts()
+    check_counts("BucketedDeform", counts,
+                 {**dict.fromkeys(counts, 0), "jfa_class": 2 * len(BUCKET_SIZES)})
+    for hw, out in outs.items():
+        label, grid = out["pred_label"], out["grid"]
+        if label.shape != (2, *hw):
+            raise AssertionError(f"BucketedDeform {hw}: labels {tuple(label.shape)}")
+        rounds = jfa_rounds_from_grid(grid, hw)
+        host = unwarp_argmax_scatter(out["pred"].cpu(), grid.cpu(), hw, rounds=rounds.cpu())
+        if not torch.equal(host, label.cpu()):
+            raise AssertionError(f"BucketedDeform {hw}: labels != the host recompute")
+    log(f"BucketedDeform: {json.dumps(res)}; labels bit-equal to the host recompute through "
+        f"the plain jump flood on {card}")
+    del model, bucketed, outs
+    torch.cuda.empty_cache()
+    return res, {"bucketed": counts}
+
+
+def dispatch_cost(card, device) -> dict:
+    """Phase 3i (a): what the registered operator costs per call on this
+    host: CUDA events around one call on an idle stream (median of 20) of K1
+    at b8 640x640 and K5 at C = 1 (the label round trip's gather), through
+    the wrapper (the operator) and through the operator's CUDA kernel
+    function called directly, in turn, three times each."""
+    import torch
+
+    from fovealseg_torch.ops import gather, jfa
+    from fovealseg_torch.tools.profile_gather import events_ms
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    valid = torch.rand((8, CANVAS, CANVAS), generator=g, device=device) > 0.995
+    payload = torch.randint(0, 51, (8, CANVAS, CANVAS), generator=g, device=device,
+                            dtype=torch.int32)
+    rounds = torch.full((1,), 7, dtype=torch.int32, device=device)
+    table = torch.randn((8, 6400, 1), generator=g, device=device)
+    idx = torch.randint(0, 6400, (8, CANVAS, CANVAS), generator=g, device=device,
+                        dtype=torch.int32)
+    pairs = {"jfa_class": (lambda: jfa.nearest_class(valid, payload, 6, rounds),
+                           lambda: jfa._launch("fovealseg_jfa_nearest_payload", valid, payload,
+                                               rounds, "nearest_class")),
+             "row_gather C=1": (lambda: gather.row_gather(table, idx),
+                                lambda: gather._row_gather_cuda(table, idx))}
+    res = {}
+    for name, (wrapper, direct) in pairs.items():
+        runs = {"wrapper": [], "direct": []}
+        for _ in range(3):
+            runs["wrapper"].append(events_ms(wrapper, 20))
+            runs["direct"].append(events_ms(direct, 20))
+        res[name] = {k: statistics.median(v) for k, v in runs.items()}
+        res[name]["operator_us"] = (res[name]["wrapper"] - res[name]["direct"]) * 1e3
+    log(f"the registered operators' cost per call (events ms, one call on an idle stream): "
+        f"{json.dumps(res)} on {card}")
+    return res
+
+
+def export_and_zoo_path(card, device, out_dir) -> tuple[dict, dict]:
+    """Phase 3i."""
+    t = time.perf_counter()
+    artifact, counts = artifact_path(card, device, out_dir)
+    t_zoo = time.perf_counter()
+    zoo = zoo_path(card, device)
+    t_bucket = time.perf_counter()
+    bucketed, more = bucketed_path(card, device)
+    counts.update(more)
+    artifact["operator_cost"] = dispatch_cost(card, device)
+    seconds = {"artifact": t_zoo - t, "zoo": t_bucket - t_zoo,
+               "bucketed_and_operator_cost": time.perf_counter() - t_bucket}
+    log(f"phase 3i took {sum(seconds.values()):.1f} s ({json.dumps(seconds)}) on {card}")
+    return {"artifact": artifact, "zoo": zoo, "bucketed": bucketed, "phase_3i_s": seconds}, counts
+
+
 def main() -> int:
     import torch
 
@@ -2894,6 +3304,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         mesh_spatial, mesh_counts = mesh_and_spatial_path(
             card, device, out_dir, {k: serving["float32"][k] for k in ("b1_ms", "b1_host_ms")})
+    log("== phase 3i: the serving artifact (cli.export), the plain-segmentation zoo, "
+        "BucketedDeform")
+    with tempfile.TemporaryDirectory() as out_dir:
+        export_zoo, export_counts = export_and_zoo_path(card, device, out_dir)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -2916,7 +3330,8 @@ def main() -> int:
                    **{path: c[name] for path, c in encoder_counts.items()},
                    **{path: c.get(name, 0) for path, c in parallel_counts.items()},
                    **{path: c[name] for path, c in real_counts.items()},
-                   **{path: c.get(name, 0) for path, c in mesh_counts.items()}}
+                   **{path: c.get(name, 0) for path, c in mesh_counts.items()},
+                   **{path: c[name] for path, c in export_counts.items()}}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -2948,7 +3363,7 @@ def main() -> int:
                                     for c in n["cases"]]
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
                     "encoders": encoders, "parallel": parallel, "real_data": real_data,
-                    "mesh_and_spatial": mesh_spatial,
+                    "mesh_and_spatial": mesh_spatial, "export_and_zoo": export_zoo,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -22,7 +22,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fovealseg_torch.core.interpolate import _linear_resize_matrix, full_f32_matmul, resize_bilinear
+from fovealseg_torch.core.interpolate import (
+    _linear_resize_matrix,
+    eager_cache,
+    full_f32_matmul,
+    resize_bilinear,
+)
 
 
 def make_gaussian_1d(size: int, fwhm: float, center: float | None = None) -> np.ndarray:
@@ -57,7 +62,7 @@ def pad_saliency(xs: torch.Tensor, pad_x: int, pad_y: int, mode: str = "replicat
     return x.permute(0, 2, 3, 1)
 
 
-@functools.lru_cache(maxsize=16)
+@eager_cache(maxsize=16)
 def _solver_tensors(solver: "GridSolver", device: torch.device):
     """(u, v, mh, mw) f32 tensors on ``device``: the coordinate basis and the
     two banded 1-D Gaussian matrices."""

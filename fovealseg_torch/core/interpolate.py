@@ -17,6 +17,7 @@ same dense contraction with the pooling bins as the matrix.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 
@@ -79,7 +80,38 @@ def full_f32_matmul():
         matmul.fp32_precision = prev
 
 
-@functools.lru_cache(maxsize=64)
+def eager_cache(maxsize: int):
+    """A least-recently-used cache (positional arguments) for functions that
+    make tensors, which a trace (``torch.export``, ``torch.compile``) reads
+    but never fills: a hit gives the cached device tensor, which becomes a
+    constant of the program; a miss makes the tensor inside the trace and
+    keeps nothing, since a traced tensor kept here would break the next
+    eager call. ``cli/export.py`` warms the caches with one eager call
+    before it traces, so that no constant of its program is copied from the
+    host on every call."""
+    def wrap(fn):
+        store: collections.OrderedDict = collections.OrderedDict()
+
+        @functools.wraps(fn)
+        def call(*args):
+            hit = store.get(args)
+            if hit is not None:
+                store.move_to_end(args)
+                return hit
+            value = fn(*args)
+            if not torch.compiler.is_compiling():
+                store[args] = value
+                if len(store) > maxsize:
+                    store.popitem(last=False)
+            return value
+
+        call.cache_clear = store.clear
+        return call
+
+    return wrap
+
+
+@eager_cache(maxsize=64)
 def _resize_matrix(in_size: int, out_size: int, device: torch.device,
                    dtype: torch.dtype = torch.float32, kind: str = "linear") -> torch.Tensor:
     """The [out, in] resize matrix of ``kind`` ('linear' or 'area') as an f32
@@ -124,6 +156,11 @@ def resize_bilinear_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tens
 def resize_area(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Torch ``F.interpolate(mode='area')`` (adaptive average pooling). NHWC."""
     return _resize(x, out_hw, 1, "area")
+
+
+def resize_area_nchw(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """The same adaptive average pooling on an NCHW tensor."""
+    return _resize(x, out_hw, 2, "area")
 
 
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

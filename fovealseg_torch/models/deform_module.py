@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -56,6 +55,7 @@ from fovealseg_torch.core.grid import (
 from fovealseg_torch.core.interpolate import (
     _area_resize_matrix,
     _linear_resize_matrix,
+    eager_cache,
     full_f32_matmul,
     resize_bilinear,
     resize_bilinear_nchw,
@@ -148,7 +148,7 @@ class DeformConfig:
         return GridSolver(grid_h, grid_w, pad_x, int(ap * pad_x), float(self.gaussian_radius))
 
 
-@functools.lru_cache(maxsize=64)
+@eager_cache(maxsize=64)
 def _pool_operator(size: int, s: int, device: torch.device) -> torch.Tensor:
     """``U_s @ P_s`` [size, size]: adaptive average pooling (size -> s) then
     the bilinear resize back (s -> size), one axis of the Recasens pretrain

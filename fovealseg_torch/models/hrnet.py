@@ -72,14 +72,18 @@ def _conv_bn_relu(cin: int, cout: int, stride: int, dtype) -> nn.Sequential:
 
 
 class HighResolutionModule(nn.Module):
-    """One HRNet exchange unit: per-branch BasicBlocks + all-to-all fuse."""
+    """One HRNet exchange unit: per-branch BasicBlocks + all-to-all fuse.
+    ``num_blocks``: blocks per branch, one count or one per branch;
+    ``make_block(channels)`` builds a branch block (default: a BasicBlock
+    with dropout 0.3)."""
 
-    def __init__(self, channels, num_blocks: int = 4, dtype=torch.float32):
+    def __init__(self, channels, num_blocks=4, dtype=torch.float32, make_block=None):
         super().__init__()
         n = len(channels)
+        counts = tuple(num_blocks) if isinstance(num_blocks, (tuple, list)) else (num_blocks,) * n
+        make_block = make_block or (lambda c: BasicBlock(c, c, dtype))
         self.branches = nn.ModuleList(
-            nn.Sequential(*[BasicBlock(channels[i], channels[i], dtype) for _ in range(num_blocks)])
-            for i in range(n))
+            nn.Sequential(*[make_block(channels[i]) for _ in range(counts[i])]) for i in range(n))
         fuse = nn.ModuleList()
         for i in range(n):
             row = nn.ModuleList()
@@ -106,6 +110,8 @@ class HighResolutionModule(nn.Module):
 
     def forward(self, xs):
         feats = [branch(x) for branch, x in zip(self.branches, xs)]
+        if len(feats) == 1:
+            return feats
         fused = []
         for i, row in enumerate(self.fuse_layers):
             y = None

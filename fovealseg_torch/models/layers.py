@@ -5,7 +5,7 @@ one for one); each layer computes in the ``dtype`` it was built with, as the
 JAX modules' ``dtype`` does: a conv or linear layer casts its input and its
 weights to that type, and BatchNorm normalizes in f32 and returns that type.
 Under ``torch.no_grad`` the cast weights are cached until the parameter
-changes.
+changes (not under a trace: an exported program casts them in its graph).
 
 BN follows the JAX package's flax BatchNorm: eps 1e-5; in eval mode it
 normalises with the running statistics; in train mode with the batch's
@@ -48,12 +48,13 @@ from fovealseg_torch.core.interpolate import resize_bilinear_nchw
 
 
 class _CastCache:
-    """Weights in the layer's compute dtype, cached while gradients are off."""
+    """Weights in the layer's compute dtype, cached while gradients are off
+    (and never under a trace, which casts the parameter in its program)."""
 
     def _cast_param(self, name: str, p: torch.Tensor | None):
         if p is None or p.dtype == self.compute_dtype:
             return p
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_compiling():
             return p.to(self.compute_dtype)
         cache = self.__dict__.setdefault("_cast", {})
         key = (p.data_ptr(), p._version, p.device)

@@ -2,24 +2,28 @@
 ``fovealseg_tpu/ops/pallas_gather.py::windowed_row_gather``, K5, and of the
 XLA flat gather ``core/unwarp.py::_gather_rows_flat``).
 
-``row_gather`` launches the hand-written CUDA kernel
-(``fovealseg_torch/csrc/gather.cu``) for CUDA tensors and takes the plain
-PyTorch version, ``row_gather_plain``, for CPU tensors. The kernel copies
-32-bit words, so it serves float32 and int32 tables and is bit-exact.
+``row_gather`` calls the registered operator ``torch.ops.fovealseg.row_gather``
+(``ops/library.py``), whose CUDA kernel launches the hand-written CUDA
+kernel (``fovealseg_torch/csrc/gather.cu``) and whose CPU kernel is the
+plain PyTorch version, ``row_gather_plain``; a trace (``torch.export``)
+records the operator through its fake kernel. The kernel copies 32-bit
+words, so it serves float32 and int32 tables and is bit-exact.
 Indices outside [0, T) are clamped, in both versions. Which of the kernel's
 three variants runs is decided here, by :func:`gather_variant`, from the
 channel count and the alignment of the three tensors.
 
-The wrapper's host work per call is kept small, because at C <= 3 the
-kernel takes ~10-40 us: the C function is resolved once, and the device
-context is entered only when the tensors are not on the current device.
+The host work per call is kept small, because at C <= 3 the kernel takes
+~10-40 us: the C function is resolved once, and the device context is
+entered only when the tensors are not on the current device.
 
 The kernel's launch count is ``row_gather.launches``: one per call that
-launched it.
+launched it, counted in the operator's CUDA kernel (so the run of an
+exported program counts too).
 
 **Gradient (K5b).** A float32 table that requires grad, with gradients on,
 goes through :class:`RowGather`: its forward is the gather above, its
-backward ``row_gather_backward``, the scatter-add
+backward ``row_gather_backward`` (the operator
+``torch.ops.fovealseg.row_gather_backward``), the scatter-add
 ``grad[b, idx[b, p], :] += grad_out[b, p, :]`` of the gradient rows into a
 [B, T, C] table (the JAX package's autodiff of the flat gather). Its order
 of summation is fixed: ``grad[b, r, c]`` is one chain of f32 adds from +0.0
@@ -42,6 +46,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from fovealseg_torch.ops.library import register
 
 _WORD_DTYPES = (torch.float32, torch.int32)
 
@@ -107,7 +113,7 @@ def row_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         if values.dtype != torch.float32:
             raise ValueError("row_gather's gradient needs a float32 table")
         return RowGather.apply(values, idx)
-    return _gather(values, idx)
+    return _row_gather_op(values, idx)
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
@@ -139,11 +145,8 @@ def _call(fn, dev: torch.device, *args) -> None:
         raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA error {err}")
 
 
-def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The gather without autograd: the plain version on the CPU, K5 on the
-    card."""
-    if not _on_card("row_gather", values, idx):
-        return row_gather_plain(values, idx)
+def _row_gather_cuda(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    _on_card("row_gather", values, idx)
     dev = values.device
     b, t, c = values.shape
     n = idx.numel() // b if b else 0
@@ -156,6 +159,11 @@ def _gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _call(_kernel("fovealseg_row_gather"), dev, *ptrs, b, n, t, c, variant)
     row_gather.launches += 1
     return out
+
+
+_row_gather_op = register("row_gather(Tensor values, Tensor idx) -> Tensor", row_gather_plain,
+                          _row_gather_cuda,
+                          lambda values, idx: values.new_empty((*idx.shape, values.shape[2])))
 
 
 def row_gather_backward_plain(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
@@ -197,7 +205,6 @@ def row_gather_backward(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> to
     [0, T) as the forward clamps them). grad_out [B, ..., C] float32, idx
     [B, ...] int32. CPU tensors take the plain version; CUDA tensors launch
     the kernel or raise."""
-    b = idx.shape[0]
     c = grad_out.shape[-1]
     if grad_out.dtype != torch.float32 or tuple(grad_out.shape[:-1]) != tuple(idx.shape):
         raise ValueError(f"grad_out must be float32 [*idx.shape, C], got "
@@ -206,9 +213,13 @@ def row_gather_backward(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> to
         raise ValueError("idx must be int32 on grad_out's device")
     if t <= 0 or not 0 < c < 65536:
         raise ValueError(f"row_gather_backward needs rows and 1..65535 channels (T={t}, C={c})")
-    if not _on_card("row_gather_backward", grad_out, idx):
-        return row_gather_backward_plain(grad_out, idx, t)
+    return _row_gather_backward_op(grad_out, idx, t)
+
+
+def _row_gather_backward_cuda(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> torch.Tensor:
+    _on_card("row_gather_backward", grad_out, idx)
     dev = grad_out.device
+    b, c = idx.shape[0], grad_out.shape[-1]
     n = idx.numel() // b if b else 0
     _limits("row_gather_backward", b, n)
     if n == 0 or b == 0:
@@ -222,6 +233,12 @@ def row_gather_backward(grad_out: torch.Tensor, idx: torch.Tensor, t: int) -> to
     return grad
 
 
+_row_gather_backward_op = register(
+    "row_gather_backward(Tensor grad_out, Tensor idx, int t) -> Tensor",
+    row_gather_backward_plain, _row_gather_backward_cuda,
+    lambda grad_out, idx, t: grad_out.new_empty((idx.shape[0], t, grad_out.shape[-1])))
+
+
 class RowGather(torch.autograd.Function):
     """``row_gather`` with a gradient for the table: forward K5 (or the plain
     gather on the CPU), backward K5b (or ``row_gather_backward_plain``)."""
@@ -230,7 +247,7 @@ class RowGather(torch.autograd.Function):
     def forward(ctx, values, idx):
         ctx.save_for_backward(idx)
         ctx.rows = values.shape[1]
-        return _gather(values, idx)
+        return _row_gather_op(values, idx)
 
     @staticmethod
     def backward(ctx, grad_out):

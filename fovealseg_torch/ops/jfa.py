@@ -10,10 +10,13 @@ wrapper                    TPU entry point                           #
 ``nearest_seed``           ``nearest_seed_pallas`` ('seed')          K4
 =========================  ========================================  ====
 
-Each wrapper launches the hand-written CUDA kernel
-(``fovealseg_torch/csrc/jfa.cu``) for CUDA tensors and takes its plain
-PyTorch version (``*_plain``) for CPU tensors. All reproduce the Pallas
-kernel bit for bit: ``rounds`` clipped to [1, full] with
+Each wrapper calls its registered operator, ``torch.ops.fovealseg.<wrapper>``
+(``ops/library.py``), whose CUDA kernel launches the hand-written CUDA kernel
+(``fovealseg_torch/csrc/jfa.cu``) and whose CPU kernel is the plain PyTorch
+version (``*_plain``); a trace (``torch.export``) records the operator
+through its fake kernel. ``rounds`` crosses the operator as one int32
+value; the wrapper makes ``None`` and ints into one. All reproduce the
+Pallas kernel bit for bit: ``rounds`` clipped to [1, full] with
 full = ceil(log2(max(H, W))), rounds+1 trips with step
 ``max((1 << (rounds-1)) >> i, 1)``, the 8 directions applied in sequence
 within a trip, out-of-range candidates invalid, strict ``<`` on the squared
@@ -24,7 +27,8 @@ sublattice (``tile_shape``); ``tests/test_torch_port_jfa.py`` emulates its
 tiles on the CPU.
 
 Each kernel's launch count is ``<wrapper>.launches``: one per call that
-launched it.
+launched it, counted in the operator's CUDA kernel, so the run of an exported
+program counts as an eager call does.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import ctypes
 import math
 
 import torch
+
+from fovealseg_torch.ops.library import register
 
 _FAR = 2**31 - 1
 _MAX_SIDE = 1 << 15  # positions ride as (y << 16) | x in one int32
@@ -187,27 +193,28 @@ def nearest_seed_plain(valid: torch.Tensor, rounds=None) -> torch.Tensor:
     """Plain PyTorch version of K4: flat index y*W + x of each pixel's
     nearest valid seed, 0 where none is reached."""
     _check(valid)
-    w = valid.shape[2]
-    seed_y, seed_x = _flood_plain(valid, rounds)
-    return torch.where(seed_y >= 0, seed_y * w + seed_x, 0)
+    return _seed_cpu(valid, rounds)
 
 
 def _rounds_tensor(rounds, full: int, device: torch.device) -> torch.Tensor:
+    """The round count as the ops take it: one int32 value on ``device``.
+    None is the full chain; an int (or a CPU tensor, for the plain versions)
+    is made into one; a CUDA tensor must already be one int32 value there."""
     if rounds is None:
         rounds = full
-    if isinstance(rounds, int):
-        return torch.full((1,), rounds, dtype=torch.int32, device=device)
+    if not torch.is_tensor(rounds):
+        return torch.full((1,), int(rounds), dtype=torch.int32, device=device)
+    if device.type == "cpu" and rounds.device.type == "cpu" and rounds.numel() == 1:
+        return rounds.reshape(1).to(torch.int32)
     if rounds.dtype != torch.int32 or rounds.numel() != 1 or rounds.device != device:
         raise ValueError("rounds must be an int or one int32 value on the kernel's device")
     return rounds.reshape(1).contiguous()
 
 
-def _launch(entry: str, valid: torch.Tensor, payload: torch.Tensor | None, rounds,
+def _launch(entry: str, valid: torch.Tensor, payload: torch.Tensor | None, rounds: torch.Tensor,
             name: str) -> torch.Tensor:
     """Launch ``entry`` of ``csrc/jfa.cu`` on CUDA tensors; raise on what it
     does not take or if the launch fails."""
-    if valid.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda tensors, not {valid.device}")
     b, h, w = valid.shape
     if h >= _MAX_SIDE or w >= _MAX_SIDE or b >= 65536:
         raise ValueError(f"canvas {b}x{h}x{w} exceeds the kernel's limits")
@@ -227,6 +234,48 @@ def _launch(entry: str, valid: torch.Tensor, payload: torch.Tensor | None, round
     return out
 
 
+# The four floods as registered operators: the CUDA kernel counts its
+# launches, so that a program exported with ``torch.export`` counts them too.
+
+def _flood_fake(valid, *_):
+    return valid.new_empty(valid.shape, dtype=torch.int32)
+
+
+def _payload_op(name: str):
+    """``fovealseg::<name>`` (valid, payload, rounds) -> int32, counted on
+    the wrapper of the same name."""
+    def cuda(valid, payload, rounds):
+        out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds, name)
+        globals()[name].launches += 1
+        return out
+
+    return register(f"{name}(Tensor valid, Tensor payload, Tensor rounds) -> Tensor",
+                    _payload_at_seed, cuda, _flood_fake)
+
+
+def _seed_cpu(valid: torch.Tensor, rounds: torch.Tensor) -> torch.Tensor:
+    w = valid.shape[2]
+    seed_y, seed_x = _flood_plain(valid, rounds)
+    return torch.where(seed_y >= 0, seed_y * w + seed_x, 0)
+
+
+def _seed_cuda(valid: torch.Tensor, rounds: torch.Tensor) -> torch.Tensor:
+    out = _launch("fovealseg_jfa_nearest_seed", valid, None, rounds, "nearest_seed")
+    nearest_seed.launches += 1
+    return out
+
+
+_nearest_class_op = _payload_op("nearest_class")
+_nearest_payload_op = _payload_op("nearest_payload")
+_nearest_packed_op = _payload_op("nearest_payload_packed")
+_nearest_seed_op = register("nearest_seed(Tensor valid, Tensor rounds) -> Tensor", _seed_cpu,
+                            _seed_cuda, _flood_fake)
+
+
+def _rounds_for(valid: torch.Tensor, rounds) -> torch.Tensor:
+    return _rounds_tensor(rounds, full_rounds(*valid.shape[1:]), valid.device)
+
+
 def nearest_class(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int,
                   rounds=None) -> torch.Tensor:
     """K1. valid [B, H, W] bool, payload [B, H, W] int32 (values <
@@ -234,55 +283,41 @@ def nearest_class(valid: torch.Tensor, payload: torch.Tensor, cls_bits: int,
 
     ``rounds``: None (full chain), an int, or an int32 device scalar such as
     ``core.unwarp.jfa_rounds_from_grid``'s, which the kernel reads on the
-    device. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    device. Calls ``torch.ops.fovealseg.nearest_class``: CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     _check(valid, payload, cls_bits)
-    if valid.device.type == "cpu":
-        return nearest_class_plain(valid, payload, cls_bits, rounds)
-    out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds, "nearest_class")
-    nearest_class.launches += 1
-    return out
+    return _nearest_class_op(valid, payload, _rounds_for(valid, rounds))
 
 
 def nearest_payload(valid: torch.Tensor, payload: torch.Tensor, rounds=None) -> torch.Tensor:
-    """K3: as ``nearest_class`` for any int32 payload."""
+    """K3: as ``nearest_class`` for any int32 payload
+    (``torch.ops.fovealseg.nearest_payload``)."""
     _check(valid, payload)
-    if valid.device.type == "cpu":
-        return nearest_payload_plain(valid, payload, rounds)
-    out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds, "nearest_payload")
-    nearest_payload.launches += 1
-    return out
+    return _nearest_payload_op(valid, payload, _rounds_for(valid, rounds))
 
 
 def nearest_payload_packed(valid: torch.Tensor, payload: torch.Tensor, pay_bits: int,
                            rounds=None) -> torch.Tensor:
     """K2: as ``nearest_payload`` for payloads < 2**pay_bits, pay_bits <= 13
-    (flat task indices). Dispatches as the Pallas entry point does: a
-    payload wider than 13 bits, or a round count known on the host above
-    ``REL_MAX_ROUNDS`` (the TPU kernel's ``lax.cond``), goes to K3. A
-    device-scalar count stays here without a host sync: the CUDA kernel has
-    no round cap and its winners do not depend on the count's side of 7."""
+    (flat task indices; ``torch.ops.fovealseg.nearest_payload_packed``).
+    Dispatches as the Pallas entry point does: a payload wider than 13 bits,
+    or a round count known on the host above ``REL_MAX_ROUNDS`` (the TPU
+    kernel's ``lax.cond``), goes to K3. A device-scalar count stays here
+    without a host sync: the CUDA kernel has no round cap and its winners do
+    not depend on the count's side of 7."""
     _check(valid, payload, pay_bits=pay_bits)
     host_r = full_rounds(*valid.shape[1:]) if rounds is None else rounds
     if pay_bits > REL_MAX_PAY_BITS or (isinstance(host_r, int) and host_r > REL_MAX_ROUNDS):
         return nearest_payload(valid, payload, rounds)
-    if valid.device.type == "cpu":
-        return nearest_payload_packed_plain(valid, payload, pay_bits, rounds)
-    out = _launch("fovealseg_jfa_nearest_payload", valid, payload, rounds,
-                  "nearest_payload_packed")
-    nearest_payload_packed.launches += 1
-    return out
+    return _nearest_packed_op(valid, payload, _rounds_for(valid, rounds))
 
 
 def nearest_seed(valid: torch.Tensor, rounds=None) -> torch.Tensor:
     """K4: valid [B, H, W] bool -> [B, H, W] int32 flat index y*W + x of each
-    pixel's nearest valid seed (0 where none is reached)."""
+    pixel's nearest valid seed, 0 where none is reached
+    (``torch.ops.fovealseg.nearest_seed``)."""
     _check(valid)
-    if valid.device.type == "cpu":
-        return nearest_seed_plain(valid, rounds)
-    out = _launch("fovealseg_jfa_nearest_seed", valid, None, rounds, "nearest_seed")
-    nearest_seed.launches += 1
-    return out
+    return _nearest_seed_op(valid, _rounds_for(valid, rounds))
 
 
 for _fn in (nearest_class, nearest_payload, nearest_payload_packed, nearest_seed):

@@ -6,8 +6,8 @@
   ``DeformSegmentation`` state dict: conv kernels HWIO -> OIHW, Dense kernels
   transposed, BN scale -> weight, mean/var -> running_mean/running_var, under
   the four subtrees ``localization``, ``net_compress``, ``encoder``,
-  ``decoder``. It is the port's own copy of the mapping in
-  ``export_torch_state_dict``.
+  ``decoder`` (or, with ``module=True``, one zoo module's whole tree). It
+  is the port's own copy of the mapping in ``export_torch_state_dict``.
 * :func:`load_torch_checkpoint` loads the reference's 4-file set
   ``{saliency,compress,encoder,decoder}_epoch_N.pth`` into a model.
 * :func:`load_torch_weight_files` loads per-network files named one by one,
@@ -16,6 +16,8 @@
   ``strict=False``): a key the model has no entry for, or whose shape
   differs, is skipped and logged (a ResNetZoom file's ``layer4.*`` and
   ``fc.*``), an entry the file lacks keeps its value.
+* :func:`save_torch_checkpoint` writes a model's weights as that 4-file set
+  (``cli/export.py --format torch``).
 * :func:`save_checkpoint` / :func:`load_checkpoint` are the port's training
   checkpoint: the same 4-file set (what the JAX package's
   ``load_torch_checkpoint`` reads) plus ``train_state_epoch_{N}.pth`` with the
@@ -59,8 +61,12 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def from_jax_variables(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
-    """JAX (params, batch_stats) numpy trees -> ``DeformSegmentation`` state dict."""
+def from_jax_variables(params: dict, batch_stats: dict,
+                       module: bool = False) -> dict[str, torch.Tensor]:
+    """JAX (params, batch_stats) numpy trees -> ``DeformSegmentation`` state
+    dict. ``module``: the trees of one stand-alone module, which has no such
+    subtrees (a zoo backbone, legacy decoder or ``SegHRNet``), mapped whole
+    to that module's own state-dict keys."""
     out: dict[str, torch.Tensor] = {}
     tops = set(SUBMODULE_OF_FILE.values())
 
@@ -68,7 +74,7 @@ def from_jax_variables(params: dict, batch_stats: dict) -> dict[str, torch.Tenso
         out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
 
     for path, arr in _flatten(params):
-        if path[0] not in tops:
+        if not module and path[0] not in tops:
             continue
         mod, leaf = ".".join(path[:-1]), path[-1]
         arr = np.asarray(arr, np.float32)
@@ -83,7 +89,7 @@ def from_jax_variables(params: dict, batch_stats: dict) -> dict[str, torch.Tenso
         else:
             raise KeyError(f"no torch mapping for JAX parameter {'/'.join(path)}")
     for path, arr in _flatten(batch_stats):
-        if path[0] not in tops:
+        if not module and path[0] not in tops:
             continue
         mod, leaf = ".".join(path[:-1]), path[-1]
         if leaf not in ("mean", "var"):
@@ -167,8 +173,7 @@ def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> lis
     if sd is None:
         sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
         osd = state.optimizer.state_dict()
-    files = {kind: {k[len(sub) + 1:]: v for k, v in sd.items() if k.startswith(sub + ".")}
-             for kind, sub in SUBMODULE_OF_FILE.items()}
+    files = weight_files(sd)
     files["train_state"] = {
         "optimizer": osd,
         "step": int(state.step),
@@ -179,6 +184,30 @@ def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> lis
     for tag in (["last"] if only_last else [epoch, "last"]):
         for kind, obj in files.items():
             path = os.path.join(ckpt_dir, f"{kind}_epoch_{tag}.pth")
+            _write(path, obj)
+            written.append(path)
+    return written
+
+
+def weight_files(sd: Mapping[str, torch.Tensor]) -> dict[str, dict]:
+    """A ``DeformSegmentation`` state dict split into the 4-file set's
+    contents: {file kind: the submodule's entries without its prefix}."""
+    return {kind: {k[len(sub) + 1:]: v for k, v in sd.items() if k.startswith(sub + ".")}
+            for kind, sub in SUBMODULE_OF_FILE.items()}
+
+
+def save_torch_checkpoint(ckpt_dir: str, tag, model: torch.nn.Module,
+                          also_last: bool = False) -> list[str]:
+    """Write ``model``'s weights as the reference's 4-file set
+    ``{saliency,compress,encoder,decoder}_epoch_{tag}.pth`` (the JAX
+    package's ``save_torch_checkpoint``), then the ``_last`` copies when
+    ``also_last``. Returns the written paths."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    files = weight_files({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    written = []
+    for t in ([tag, "last"] if also_last else [tag]):
+        for kind, obj in files.items():
+            path = os.path.join(ckpt_dir, f"{kind}_epoch_{t}.pth")
             _write(path, obj)
             written.append(path)
     return written

@@ -808,3 +808,72 @@ def test_train_cli_on_cooked_lvis_on_card(dev, tmp_path):
     assert state.step == 1
     assert next(state.model.parameters()).device.type == "cuda"
     assert (tmp_path / "run" / "encoder_epoch_1.pth").exists()
+
+
+# ---------------------------------------------- the registered operators and the artifact
+
+def _op_cases_on(dev):
+    g = torch.Generator().manual_seed(0)
+    valid = torch.rand((2, 96, 80), generator=g) > 0.97
+    pay = torch.randint(0, 50, (2, 96, 80), generator=g, dtype=torch.int32)
+    idx = torch.randint(-2, 300, (2, 16, 20), generator=g, dtype=torch.int32)
+    cases = {"nearest_class": (valid, pay, torch.tensor([5], dtype=torch.int32)),
+             "nearest_payload_packed": (valid, pay, torch.tensor([5], dtype=torch.int32)),
+             "nearest_payload": (valid, pay, torch.tensor([5], dtype=torch.int32)),
+             "nearest_seed": (valid, torch.tensor([5], dtype=torch.int32)),
+             "row_gather": (torch.randn((2, 298, 51), generator=g), idx),
+             "row_gather_backward": (torch.randn((2, 16, 20, 51), generator=g), idx, 298)}
+    return {k: tuple(a.to(dev) if torch.is_tensor(a) else a for a in v) for k, v in cases.items()}
+
+
+@pytest.mark.parametrize("name", ["nearest_class", "nearest_payload_packed", "nearest_payload",
+                                  "nearest_seed", "row_gather", "row_gather_backward"])
+def test_opcheck_on_card(dev, name):
+    """``torch.library.opcheck`` of each registered operator on CUDA tensors
+    (the fake kernel against the CUDA kernel), which launches the kernel and
+    counts it, bit-equal to the CPU kernel on the same inputs."""
+    import fovealseg_torch.ops  # noqa: F401
+    from fovealseg_torch.ops import gather
+
+    args = _op_cases_on(dev)[name]
+    op = getattr(torch.ops.fovealseg, name).default
+    torch.library.opcheck(op, args)
+    counter = getattr(jfa, name, None) or getattr(gather, name)
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    host = op(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    assert torch.equal(got.cpu().view(torch.int32), host.view(torch.int32))
+
+
+@pytest.mark.parametrize("scores", [False, True], ids=["labels", "scores"])
+def test_tiny_artifact_on_card_bit_equal_to_live(dev, tmp_path, scores):
+    """The tiny flagship exported on the card: the loaded program's labels
+    (or scores) bit-equal to the live ``infer``, and its run launches K1
+    (or K2 and K5) once, counted by the operators' CUDA kernels."""
+    from fovealseg_torch.cli import export
+    from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+    from fovealseg_torch.models.layers import init_weights
+    from fovealseg_torch.ops import gather
+
+    cfg = DeformConfig(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16),
+                       gaussian_radius=5, num_class=51, arch_encoder="hrnetv2_nodownsp_tiny")
+    model = init_weights(DeformSegmentation(cfg, device=dev), torch.Generator().manual_seed(3))
+    program = export.export_serving(model, 2, 64, scores=scores)
+    assert export.kernel_ops(program) == (["nearest_payload_packed", "row_gather"] if scores
+                                          else ["nearest_class"])
+    assert program.constants and all(t.device.type == "cuda" for t in program.constants.values())
+    torch.export.save(program, str(tmp_path / "p.pt2"))
+    serve = torch.export.load(str(tmp_path / "p.pt2")).module()
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.uniform(0.2, 0.8, (2, 2)).astype(np.float32)).to(dev)
+    counters = (nearest_class, jfa.nearest_payload_packed, gather.row_gather)
+    before = [c.launches for c in counters]
+    got = serve(x, f)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        [0, 1, 1] if scores else [1, 0, 0])
+    want = model.infer(x, f, argmax_labels=not scores)["pred_sampled" if scores else "pred_label"]
+    assert got.device.type == "cuda" and torch.equal(got, want)

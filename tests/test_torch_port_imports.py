@@ -39,7 +39,10 @@ def test_port_sources_exist():
                 ("data", "loader.py"), ("data", "lvis.py"), ("data", "cityscapes.py"),
                 ("data", "aria_adt.py"), ("data", "odgt.py"), ("cli", "cook.py"),
                 ("cli", "eval_odgt.py"), ("models", "segmentation_module.py"),
-                ("assets", "ade20k.py"), ("utils", "ade.py")):
+                ("assets", "ade20k.py"), ("utils", "ade.py"), ("ops", "library.py"),
+                ("cli", "export.py"), ("models", "backbones.py"),
+                ("models", "legacy_decoders.py"), ("models", "seg_hrnet.py"),
+                ("models", "bucketed.py")):
         assert os.path.join("fovealseg_torch", *mod) in names
     for src in ("jfa.cu", "gather.cu"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
