@@ -114,12 +114,15 @@ Phases (any failure exits non-zero):
         them and held on their own inputs; each rank's parameter and Adam
         moment bytes against one process's, wall and device-busy ms and
         kernels per f32 step; (b) ``--spatial 2`` (two gloo ranks on the
-        card), b1 f32: per frame the wall, device busy, kernels and
-        exchanges beside one process's and phase 3a's b1, K1 held on rank
-        0's own inputs, labels equal to one process's where its scores
-        decide them; (c) the serving CLI with ``--mesh 2 --backend gloo``
-        and ``resnet18_nonsyn`` (b8) against one process's model on the
-        same frames: at most 100 decided pixels differ;
+        card), b1 f32, for the flagship, SegFormer-B5 and DeepLabV3-R101
+        at full width (2 warm-up and 3 timed frames each): per frame the
+        wall, device busy, kernels and exchanges beside one process's (and
+        the flagship's beside phase 3a's b1), K1 once per frame on each
+        rank and held on each frame's own inputs, labels equal to one
+        process's where its scores decide them; (c) the serving CLI with
+        ``--mesh 2 --backend gloo`` and ``resnet18_nonsyn`` (b8) against
+        one process's model on the same frames: at most 100 decided pixels
+        differ;
      i. the serving artifact and the zoo: (a) the flagship exported through
         ``cli.export`` at b8 (f32 and bf16 argmax, f32 scores), each
         program loaded and run by a process that imports only
@@ -1332,8 +1335,8 @@ def serve_encoder(card, device, name, models):
                 tm, n = time_infer(model, device, n8=5, n1=6, **kw)
                 calls += n
                 for b in (8, 1):
-                    prof = profile_cell(model, b, 2, argmax_labels=kw["argmax_labels"])
-                    calls += 3 + 2 * 2
+                    prof = profile_cell(model, b, 1, argmax_labels=kw["argmax_labels"])
+                    calls += 3 + 2 * 1
                     cells[f"b{b} {dt}"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                                                  "idle_share",
                                                                  "kernels_per_call")}
@@ -1498,8 +1501,8 @@ def serve_zoom(card, device, name):
             ms = events_ms(lambda: model.infer(x, f, argmax_labels=am), 5, warmup=2)
             calls = 7
             if am:
-                prof = profile_cell(model, 8, 2, argmax_labels=True)
-                calls += 7
+                prof = profile_cell(model, 8, 1, argmax_labels=True)
+                calls += 5
                 res["argmax_b8_profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
                                                                  "idle_share", "kernels_per_call")}
         counts = read_counts()
@@ -1572,7 +1575,7 @@ def encoders_path(card, device, out_dir):
 
 DP_HIGH_RES = ("MODEL.loss_at_high_res", "True", "MODEL.rev_deform_interp", "nearest")
 # timed steps of each kind in (d), taken in turn
-DP_TIMED_STEPS = 12
+DP_TIMED_STEPS = 6
 
 
 def _bits(t):
@@ -2321,7 +2324,7 @@ def real_data_path(card, device, out_dir, synthetic_sps):
 # SGD: an update's norm then measures its gradient (Adam's first update does not)
 MESH_OPTS = ("TRAIN.optim", "sgd")
 MESH_HIGH_RES_KERNELS = ("jfa_relpay", "row_gather", "row_gather_backward")
-SPATIAL_FRAMES = 6  # timed b1 frames per spatial rank
+SPATIAL_FRAMES = 3  # timed b1 frames per spatial rank and model
 # decided pixels of (c) that may differ from one process's (2 b8 batches,
 # 6,553,600 decided pixels; 10 differed on the H100)
 NONSYN_FLIPS = 100
@@ -2689,12 +2692,13 @@ def mesh_2d_path(card, device, out_dir) -> tuple[dict, dict]:
     return res, counts
 
 
-def spatial_rank(rank, argv):
-    """Phase 3h (b), one of two gloo ranks on the one card: the serving CLI's
-    model (``--spatial``), one b1 frame at a time in f32: 2 warm-up frames,
+def spatial_rank(rank, runs):
+    """Phase 3h (b), one of two gloo ranks on the one card, for each of
+    ``runs`` ([(label, the serving CLI's argv)]) in turn: the CLI's model
+    (``--spatial``), one b1 frame at a time in f32: 2 warm-up frames,
     ``SPATIAL_FRAMES`` timed (host clock, each ending in a synchronise), one
     under torch.profiler; exchanges and kernel launches per frame, K1 held
-    on the last frame's inputs (rank 0), and the last frame's labels."""
+    on each timed frame's own inputs, and the last frame's labels."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -2702,34 +2706,41 @@ def spatial_rank(rank, argv):
     from fovealseg_torch.cli import infer as cli
     from fovealseg_torch.parallel import spatial
 
-    args, cfg, _ = cli._parse(argv)
-    model = cli.build_model(cfg, rank.device)
-    model.set_spatial(dist.group.WORLD)
-    x, f = frames(1, CANVAS, SEED + 70, rank.device)
-    for _ in range(2):
-        model.infer(x, f, argmax_labels=True)
-    torch.cuda.synchronize()
-    reset_counts()
-    before = spatial.exchanges
-    walls = []
-    for _ in range(SPATIAL_FRAMES):
-        t = time.perf_counter()
-        with kernel_inputs() as seen:
-            label = model.infer(x, f, argmax_labels=True)["pred_label"]
+    out = {}
+    for label, argv in runs:
+        args, cfg, _ = cli._parse(argv)
+        model = cli.build_model(cfg, rank.device)
+        model.set_spatial(dist.group.WORLD)
+        x, f = frames(1, CANVAS, SEED + 70, rank.device)
+        for _ in range(2):
+            model.infer(x, f, argmax_labels=True)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
-    counts = read_counts()
-    exchanges = (spatial.exchanges - before) / SPATIAL_FRAMES
-    if rank.rank == 0:
-        hold_on_path_inputs("--spatial 2 rank 0, one b1 frame", seen, ("jfa_class",))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        model.infer(x, f, argmax_labels=True)
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    return {"wall_ms": statistics.median(walls), "walls_ms": walls,
-            "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-            "kernels_per_frame": len(kernels), "exchanges_per_frame": exchanges,
-            "counts": counts, "label": label.cpu()}
+        reset_counts()
+        before = spatial.exchanges
+        walls, inputs = [], []
+        for _ in range(SPATIAL_FRAMES):
+            t = time.perf_counter()
+            with kernel_inputs() as seen:
+                pred_label = model.infer(x, f, argmax_labels=True)["pred_label"]
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            inputs.append(seen)
+        counts = read_counts()
+        exchanges = (spatial.exchanges - before) / SPATIAL_FRAMES
+        for i, seen in enumerate(inputs):
+            hold_on_path_inputs(f"--spatial 2 {label} rank {rank.rank}, b1 frame {i}", seen,
+                                ("jfa_class",))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.infer(x, f, argmax_labels=True)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        out[label] = {"wall_ms": statistics.median(walls), "walls_ms": walls,
+                      "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+                      "kernels_per_frame": len(kernels), "exchanges_per_frame": exchanges,
+                      "counts": counts, "label": pred_label.cpu()}
+        del model, inputs
+        torch.cuda.empty_cache()
+    return out
 
 
 def _decided(scores):
@@ -2747,29 +2758,22 @@ def _cli_masks(d):
     return names, np.stack([np.load(os.path.join(d, n)) for n in names])
 
 
-def spatial_and_nonsyn_path(card, device, out_dir, b1) -> tuple[dict, dict]:
-    """Phase 3h (b) and (c): two ``--spatial`` ranks (the serving CLI's
-    model, b1) timed beside one process's frame, their labels equal to one
-    process's on every pixel that its scores decide; then the serving CLI
-    with ``--mesh 2`` and ``resnet18_nonsyn`` (b8, two gloo ranks on the
-    card; no time is read from it) beside one process's model on the CLI's
-    frames, at most ``NONSYN_FLIPS`` decided pixels differing. The CLI's
-    ``--spatial`` wiring is held on the CPU
-    (``tests/test_torch_parallel_spatial.py``)."""
-    import numpy as np
+# phase 3h (b)'s models: label -> the serving CLI's options beside SERVE_F32_OPTS
+SPATIAL_MODELS = {"flagship": [],
+                  "segformer": ["MODEL.arch_encoder", "segformer", "MODEL.fc_dim", "1024"],
+                  "deeplab": ["MODEL.arch_encoder", "deeplab"]}
+
+
+def _one_process_frame(device, argv) -> dict:
+    """One process's b1 frame of the serving CLI's model: its scores and
+    labels, then 2 warm-up and ``SPATIAL_FRAMES`` timed frames (host clock)
+    and one under torch.profiler."""
     import torch
-
-    from fovealseg_torch.cli import infer as cli
-    from fovealseg_torch.parallel.launch import run_workers
-
-    common = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--num-batches", "2"]
-    opts = SERVE_F32_OPTS
-    rank_args = common + ["--batch", "1", "--spatial", "2"] + opts
-    t = time.perf_counter()
-    # the one-process frame first: its scores, labels, b1 wall and device busy
     from torch.profiler import ProfilerActivity, profile
 
-    _, cfg, _ = cli._parse(rank_args)
+    from fovealseg_torch.cli import infer as cli
+
+    _, cfg, _ = cli._parse(argv)
     model = cli.build_model(cfg, device)
     x, f = frames(1, CANVAS, SEED + 70, device)
     scores = model.infer(x, f)["pred_sampled"]
@@ -2787,21 +2791,77 @@ def spatial_and_nonsyn_path(card, device, out_dir, b1) -> tuple[dict, dict]:
         model.infer(x, f, argmax_labels=True)
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
-    del model
+    out = {"decided": _decided(scores).cpu(), "label": one_label.cpu(),
+           "wall_ms": statistics.median(walls), "walls_ms": walls,
+           "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+           "kernels_per_frame": len(kernels)}
+    del model, scores
     torch.cuda.empty_cache()
-    ranks = run_workers(2, spatial_rank, rank_args, device=[0, 0], backend="gloo", timeout=300,
+    return out
+
+
+def spatial_serving(card, device, b1) -> tuple[dict, dict]:
+    """Phase 3h (b): for each of ``SPATIAL_MODELS``, one process's b1 frame
+    (``_one_process_frame``), then one launch of two ``--spatial`` ranks
+    that serve the models in turn (``spatial_rank``): their labels equal to
+    one process's on every pixel that its scores decide, K1 once per frame
+    on each rank, their frames timed beside one process's."""
+    import torch
+
+    from fovealseg_torch.parallel.launch import run_workers
+
+    t = time.perf_counter()
+    runs = [(label, ["--cfg", "fovealseg_torch/configs/deform.yaml", "--num-batches", "2",
+                     "--batch", "1", "--spatial", "2"] + SERVE_F32_OPTS + extra)
+            for label, extra in SPATIAL_MODELS.items()]
+    one = {label: _one_process_frame(device, argv) for label, argv in runs}
+    ranks = run_workers(2, spatial_rank, runs, device=[0, 0], backend="gloo", timeout=600,
                         echo=True)
-    ok = _decided(scores)
-    for r in ranks:
-        if not torch.equal(r["label"][ok.cpu()], one_label.cpu()[ok.cpu()]):
-            raise AssertionError("--spatial 2 labels != one process's on the decided pixels")
-    res = {"spatial_ranks": [{k: v for k, v in r.items() if k != "label"} for r in ranks],
-           "one_process": {"wall_ms": statistics.median(walls), "walls_ms": walls,
-                           "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-                           "kernels_per_frame": len(kernels)},
-           "phase_3a_b1": b1, "undecided_pixels": int((~ok).sum())}
-    log(f"--spatial 2 (two gloo ranks on one card), b1 f32: {json.dumps(res)} on {card}")
-    del scores
+    res, counts = {"seconds": time.perf_counter() - t}, {}
+    for label, _ in runs:
+        ok, mine = one[label]["decided"], [r[label] for r in ranks]
+        for r in mine:
+            if not torch.equal(r["label"][ok], one[label]["label"][ok]):
+                raise AssertionError(f"--spatial 2 {label} labels != one process's on the "
+                                     f"decided pixels")
+            check_counts(f"--spatial 2 {label}, a rank's {SPATIAL_FRAMES} b1 frames",
+                         r["counts"], {**dict.fromkeys(r["counts"], 0),
+                                       "jfa_class": SPATIAL_FRAMES})
+        res[label] = {"spatial_ranks": [{k: v for k, v in r.items() if k != "label"}
+                                        for r in mine],
+                      "one_process": {k: v for k, v in one[label].items()
+                                      if k not in ("decided", "label")},
+                      "undecided_pixels": int((~ok).sum())}
+        if label == "flagship":
+            res[label]["phase_3a_b1"] = b1
+        log(f"--spatial 2 {label} (two gloo ranks on one card), b1 f32: labels held on "
+            f"{int(ok.sum())} decided pixels; wall per frame "
+            f"{[round(r['wall_ms'], 2) for r in mine]} ms over two ranks against "
+            f"{one[label]['wall_ms']:.2f} ms in one process; exchanges per frame "
+            f"{[r['exchanges_per_frame'] for r in mine]}; {json.dumps(res[label])} on {card}")
+        key = "spatial_b1_ranks" + ("" if label == "flagship" else f"_{label}")
+        counts[key] = {"jfa_class": sum(r["counts"]["jfa_class"] for r in mine)}
+    log(f"3h (b) took {res['seconds']:.1f} s")
+    return res, counts
+
+
+def spatial_and_nonsyn_path(card, device, out_dir, b1) -> tuple[dict, dict]:
+    """Phase 3h (b) and (c): two ``--spatial`` ranks for the flagship,
+    SegFormer-B5 and DeepLabV3-R101 (``spatial_serving``); then the serving
+    CLI with ``--mesh 2`` and ``resnet18_nonsyn`` (b8, two gloo ranks on the
+    card; no time is read from it) beside one process's model on the CLI's
+    frames, at most ``NONSYN_FLIPS`` decided pixels differing. The CLI's
+    ``--spatial`` wiring is held on the CPU
+    (``tests/test_torch_parallel_spatial*.py``)."""
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.cli import infer as cli
+
+    common = ["--cfg", "fovealseg_torch/configs/deform.yaml", "--num-batches", "2"]
+    opts = SERVE_F32_OPTS
+    t = time.perf_counter()
+    res, counts = spatial_serving(card, device, b1)
 
     # (c): the CLI's two ranks start while this process computes the
     # reference on the CLI's frames with one model
@@ -2831,9 +2891,7 @@ def spatial_and_nonsyn_path(card, device, out_dir, b1) -> tuple[dict, dict]:
     if got.shape != want.shape or flips > NONSYN_FLIPS:
         raise AssertionError(f"--mesh 2 resnet18_nonsyn: {flips} decided pixels differ from one "
                              f"process's labels (at most {NONSYN_FLIPS})")
-    counts = {"spatial_b1_ranks": {"jfa_class": sum(r["counts"]["jfa_class"] for r in ranks)},
-              "nonsyn_cli": {"jfa_class": sum(r["launches"]["jfa_class"]
-                                              for r in ranks_summary)}}
+    counts["nonsyn_cli"] = {"jfa_class": sum(r["launches"]["jfa_class"] for r in ranks_summary)}
     res["nonsyn_cli"] = {"frames": ranks_summary[0]["frames"],
                          "launches": [r["launches"] for r in ranks_summary],
                          "undecided_pixels": int((~decided).sum()),

@@ -21,10 +21,11 @@ the JAX package's sharded serve does.
 ``--spatial N`` (N > 1, the JAX CLI's single-frame latency mode) runs N rank
 processes the same way, each holding the whole frame batch: the warped
 image's rows are split over them for the encoder and the decoder
-(``parallel/spatial.py``, HRNetV2 + C1; SegFormer and DeepLab exit), and
-every rank runs the saliency net, the warp and the inverse warp whole; rank
-0 writes the masks and prints the summary, with the trunk's exchanges.
-``--spatial`` with ``--mesh`` exits, as in the JAX CLI.
+(``parallel/spatial.py``; HRNetV2, SegFormer-B5 or DeepLabV3-R101 with C1),
+and every rank runs the saliency net, the warp and the inverse warp whole;
+rank 0 writes the masks and prints the summary, with the trunk's exchanges.
+``--spatial`` with ``--mesh`` exits before any rank starts, as in the JAX
+CLI.
 
 Usage:
   python -m fovealseg_torch.cli.infer --cfg fovealseg_torch/configs/deform.yaml \
@@ -221,14 +222,8 @@ def _parse(argv):
             raise SystemExit("--batch must be divisible by --mesh")
         if micro % args.mesh:
             raise SystemExit(f"the micro-batch ({micro}) must be divisible by --mesh")
-    if args.spatial > 1:
-        if args.mesh:
-            raise SystemExit("--spatial and --mesh are exclusive")
-        from fovealseg_torch.parallel.spatial import ROADMAP_ENTRY
-
-        if cfg.MODEL.arch_encoder not in ("hrnetv2_nodownsp", "hrnetv2_nodownsp_tiny"):
-            raise SystemExit(f"--spatial with MODEL.arch_encoder {cfg.MODEL.arch_encoder!r}: "
-                             f"row-partitioned serving is not ported ({ROADMAP_ENTRY})")
+    if args.spatial > 1 and args.mesh:
+        raise SystemExit("--spatial and --mesh are exclusive")
     return args, cfg, micro
 
 

@@ -10,6 +10,9 @@ projection, Dropout(0.5)), and the classifier tail rewired 256 -> 512 ->
 decoder. The output is resized to the input's size in f32 and cast back.
 NCHW. Module paths follow torchvision under ``deeplab.backbone.*`` and
 ``deeplab.classifier.*``; BN is the port's flax-semantics ``BatchNorm2d``.
+The stem's max pool, the image pool's mean and the output resize go through
+``layers.trunk_max_pool`` / ``trunk_mean`` / ``trunk_resize``, so that the
+same forward runs row-partitioned (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +20,16 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from fovealseg_torch.core.interpolate import resize_bilinear_nchw
-from fovealseg_torch.models.layers import Dropout, at_least_f32, batch_norm, conv2d
+from fovealseg_torch.models.layers import (
+    Dropout,
+    at_least_f32,
+    batch_norm,
+    conv2d,
+    trunk_max_pool,
+    trunk_mean,
+    trunk_resize,
+    whole_tensors,
+)
 
 RESNET101_LAYERS = (3, 4, 23, 3)
 
@@ -75,7 +86,7 @@ class ResNet101OS8(nn.Module):
 
     def forward(self, x):
         x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.max_pool2d(x, 3, 2, 1)
+        x = trunk_max_pool(x, 3, 2, 1)
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
@@ -89,7 +100,20 @@ class _ImagePool(nn.Module):
     """The mean over H and W (torchvision's ``AdaptiveAvgPool2d(1)``)."""
 
     def forward(self, x):
-        return x.mean(dim=(2, 3), keepdim=True)
+        return trunk_mean(x, keepdim=True)
+
+
+class _PoolBranch(nn.Sequential):
+    """The image-pool branch (``_ImagePool``, 1x1 conv, BN, ReLU). Every rank
+    of a row-partitioned trunk holds the pooled vector whole, so the layers
+    after the pool take no row blocks."""
+
+    def forward(self, x):
+        x = self[0](x)
+        with whole_tensors():
+            for layer in self[1:]:
+                x = layer(x)
+        return x
 
 
 class ASPP(nn.Module):
@@ -102,7 +126,7 @@ class ASPP(nn.Module):
         self.convs = nn.ModuleList(
             [_conv_bn_relu(cin, 256, 1, 1, dtype)]
             + [_conv_bn_relu(cin, 256, 3, r, dtype) for r in (12, 24, 36)]
-            + [nn.Sequential(_ImagePool(), *_conv_bn_relu(cin, 256, 1, 1, dtype))])
+            + [_PoolBranch(_ImagePool(), *_conv_bn_relu(cin, 256, 1, 1, dtype))])
         self.project = nn.Sequential(conv2d(5 * 256, 256, 1, 1, 0, use_bias=False, dtype=dtype),
                                      batch_norm(256, dtype), nn.ReLU(), Dropout(0.5))
 
@@ -128,4 +152,4 @@ class DeepLabEncoder(nn.Module):
 
     def forward(self, x):
         out = self.deeplab.classifier(self.deeplab.backbone(x))
-        return [resize_bilinear_nchw(at_least_f32(out), tuple(x.shape[-2:])).to(self.dtype)]
+        return [trunk_resize(at_least_f32(out), tuple(x.shape[-2:])).to(self.dtype)]

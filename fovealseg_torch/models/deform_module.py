@@ -31,7 +31,8 @@ and ``infer`` split the warped image's rows over the ranks of a process
 group right before the encoder, run the encoder and the decoder on row
 blocks (``parallel/spatial.py``) and gather the decoder's output whole
 before the inverse warp. The saliency net, the grid, the warp, the scatter
-and the jump flood run whole on every rank. HRNetV2 + C1 only.
+and the jump flood run whole on every rank. Every encoder of the builder
+(HRNetV2, SegFormer-B5, DeepLabV3-R101) with C1.
 """
 
 from __future__ import annotations
@@ -202,21 +203,14 @@ class DeformSegmentation(nn.Module):
     def set_spatial(self, group) -> None:
         """Run the encoder and the decoder of inference row-partitioned over
         the ranks of ``group`` (None: whole). Each rank holds the whole frame
-        batch. HRNetV2 + C1 only: other nets raise."""
-        from fovealseg_torch.models.c1 import C1
-        from fovealseg_torch.models.hrnet import HRNetV2NoDownsp
+        batch. A net with a conv that ``spatial.row_aware`` cannot swap
+        raises."""
         from fovealseg_torch.parallel import spatial
 
         self.spatial_rows = None
         if group is None:
             return
-        for net, arch, kind in ((self.encoder, self.config.arch_encoder, HRNetV2NoDownsp),
-                                (self.decoder, self.config.arch_decoder, C1)):
-            if not isinstance(net, kind):
-                raise NotImplementedError(f"row-partitioned serving of {arch!r} is not "
-                                          f"ported ({spatial.ROADMAP_ENTRY})")
-        spatial.row_aware(self.encoder)
-        spatial.row_aware(self.decoder)
+        spatial.row_aware(nn.ModuleList([self.encoder, self.decoder]))
         self.spatial_rows = spatial.RowShards(group)
 
     @contextlib.contextmanager

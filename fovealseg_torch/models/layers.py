@@ -376,8 +376,9 @@ class RowHooks:
     """The row-partitioned trunk that is running, if any
     (``parallel/spatial.py::RowShards.running``). While one runs, the
     encoder's and decoder's convs (swapped for ``spatial.RowConv2d``), their
-    up-resizes (:func:`trunk_resize`) and C1's global mean
-    (:func:`trunk_mean`) take their row blocks through it."""
+    resizes (:func:`trunk_resize`), global means (:func:`trunk_mean`), max
+    pools (:func:`trunk_max_pool`) and whole-map gathers
+    (:func:`trunk_gather`) take their row blocks through it."""
 
     active = None
 
@@ -390,12 +391,47 @@ def trunk_resize(x: torch.Tensor, size) -> torch.Tensor:
     return resize_bilinear_nchw(x, size)
 
 
-def trunk_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over (H, W) [B, C]; inside a row-partitioned trunk, that of
-    the whole tensor whose rows the ranks hold."""
+def trunk_mean(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The mean over (H, W), [B, C] (``keepdim``: [B, C, 1, 1]); inside a
+    row-partitioned trunk, that of the whole tensor whose rows the ranks
+    hold."""
     if RowHooks.active is not None:
-        return RowHooks.active.mean(x)
-    return torch.mean(x, dim=(2, 3))
+        return RowHooks.active.mean(x, keepdim)
+    return torch.mean(x, dim=(2, 3), keepdim=keepdim)
+
+
+def trunk_max_pool(x: torch.Tensor, kernel_size: int, stride: int, padding: int) -> torch.Tensor:
+    """``torch.max_pool2d``; inside a row-partitioned trunk, this rank's
+    rows of it."""
+    if RowHooks.active is not None:
+        return RowHooks.active.max_pool(x, kernel_size, stride, padding)
+    return torch.max_pool2d(x, kernel_size, stride, padding)
+
+
+def trunk_gather(x: torch.Tensor, hw=None) -> torch.Tensor:
+    """``x`` itself; inside a row-partitioned trunk, the whole map on every
+    rank from the ranks' row blocks. ``x``: an NCHW map, or with ``hw`` the
+    row-major tokens [B, h * W, C] of the local map of size ``hw``."""
+    rows = RowHooks.active
+    if rows is None:
+        return x
+    if hw is None:
+        return rows.gather(x)
+    b, _, c = x.shape
+    whole = rows.gather(x.transpose(1, 2).reshape(b, c, *hw))
+    return whole.flatten(2).transpose(1, 2)
+
+
+@contextlib.contextmanager
+def whole_tensors():
+    """Inside a row-partitioned trunk, run the block on a tensor that every
+    rank holds whole (DeepLab's pooled image vector): its convs and hooks
+    take no row blocks."""
+    rows, RowHooks.active = RowHooks.active, None
+    try:
+        yield
+    finally:
+        RowHooks.active = rows
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:

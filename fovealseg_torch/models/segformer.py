@@ -17,6 +17,21 @@ package's dotted export (``segformer.encoder.block.2.39.attention.self.sr``).
 In train mode the attention probabilities (0.2), the hidden states (0.3)
 and the residual branches (drop path, 0.1 spread linearly over the blocks)
 draw from the dropout generator.
+
+Row-partitioned serving (``parallel/spatial.py``) runs this forward on each
+rank's rows of the map: the convs (patch embeddings, reduction convs,
+MixFFN's depthwise conv) fetch their halos as ``spatial.RowConv2d``, the
+stage maps resize through ``layers.trunk_resize``, and LayerNorm, the
+``Linear`` layers, GELU and the residual adds are per token. The attention
+keeps its queries on the local tokens; its keys and values come from the
+whole map, gathered by ``layers.trunk_gather`` before the per-token work
+(the reduction conv's output in stages 1-3, the tokens themselves in stage
+4), and every rank then runs the LayerNorm and the key and value
+projections on the whole reduced sequence. Gathering after them would move
+the keys and the values, twice the bytes of their input, through the
+exchange (through the host with gloo), to save per-token work on a
+sequence that the reduction makes short (100 tokens in every stage at the
+flagship's 80x80 task).
 """
 
 from __future__ import annotations
@@ -26,7 +41,6 @@ import math
 import torch
 import torch.nn as nn
 
-from fovealseg_torch.core.interpolate import resize_bilinear_nchw
 from fovealseg_torch.models.layers import (
     DropPath,
     Dropout,
@@ -35,6 +49,8 @@ from fovealseg_torch.models.layers import (
     conv2d,
     gelu,
     linear,
+    trunk_gather,
+    trunk_resize,
 )
 
 B5 = dict(
@@ -89,9 +105,9 @@ class EfficientSelfAttention(nn.Module):
         hd = c // self.heads
         q = sa.query(x)
         if self.sr_ratio > 1:
-            kv = sa.layer_norm(_to_tokens(sa.sr(_to_map(x, hw))))
+            kv = sa.layer_norm(_to_tokens(trunk_gather(sa.sr(_to_map(x, hw)))))
         else:
-            kv = x
+            kv = trunk_gather(x, hw)
         k, v = sa.key(kv), sa.value(kv)
 
         def split(t):
@@ -185,6 +201,6 @@ class SegFormerEncoder(nn.Module):
             x = _to_map(norm(tokens), hw)
             feats.append(x)
         h1, w1 = feats[0].shape[-2:]
-        ups = [feats[0]] + [resize_bilinear_nchw(at_least_f32(f), (h1, w1)).to(self.dtype)
+        ups = [feats[0]] + [trunk_resize(at_least_f32(f), (h1, w1)).to(self.dtype)
                             for f in feats[1:]]
         return [torch.cat(ups, dim=1)]

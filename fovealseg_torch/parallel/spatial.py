@@ -6,11 +6,16 @@ make_spatial_infer_fn`` and the ``spatial_sharding`` of its
 At batch 1 there is no batch to split, so N ranks split the warped task
 image's rows. The JAX package constrains the rows over a 1-D 'spatial' mesh
 and lets XLA insert the halo exchanges; here :class:`RowShards` does it by
-hand for HRNetV2 and C1. Their own forwards run unchanged on each rank's
+hand for every encoder of the builder (HRNetV2, SegFormer-B5,
+DeepLabV3-R101) and C1. Their own forwards run unchanged on each rank's
 rows: :func:`row_aware` swaps their convs for :class:`RowConv2d`, and the
-up-resizes and C1's global mean go through ``layers.trunk_resize`` and
-``layers.trunk_mean``; while a trunk runs (:meth:`RowShards.running`) these
-take their row blocks through it:
+ops that reach across rows go through hooks in ``models/layers.py``: the
+resizes (``trunk_resize``: HRNetV2's fuse and output, SegFormer's stage
+maps, DeepLab's output), the global means (``trunk_mean``: C1's class
+branch, DeepLab's image pool), DeepLab's stem max pool
+(``trunk_max_pool``) and SegFormer's keys and values (``trunk_gather``).
+While a trunk runs (:meth:`RowShards.running`) these take their row blocks
+through it:
 
 * every tensor of global height n is split into the same blocks: rank r
   owns ``[ceil(a_r * n / H), ceil(b_r * n / H))`` where ``[a_r, b_r)`` is its
@@ -19,28 +24,34 @@ take their row blocks through it:
   or stride-4 conv's input rows next to its output rows. Blocks may be
   uneven or empty (10 rows at the flagship's 1/8 level over 4 ranks: 3, 2,
   3, 2; 2 rows at the tiny 16x16 shape's 1/8 level over 4 ranks: 1, 0, 1,
-  0);
+  0), and every op takes an empty block;
 * each op fetches the input rows its output block needs (:meth:`_fetch`): a
-  k x k conv of stride s the rows ``[s * c - p, s * (d - 1) - p + k)`` of its
-  output block ``[c, d)``, zero rows outside the image; the bilinear
-  up-resize (a dense matrix, ``core/interpolate.py``) the source rows under
-  its block's support. The exchange is one all-gather of fixed-size
-  boundary slabs (each rank's first and last rows, as many as any rank
-  needs of another): it runs on gloo with CPU and CUDA tensors and on NCCL,
-  a rank may read from more than one neighbour, and there is no send/recv
-  ordering to deadlock. An op whose blocks need no other rank's rows
-  exchanges nothing (1x1 convs);
-* C1's class branch ends in a global mean: the local rows' sum, all-reduced,
-  over the global count (:meth:`mean`);
-* the decoder's output is gathered whole (:meth:`gather`) before the
-  inverse warp;
+  k x k conv or max pool of stride s the rows ``[s * c - p, s * (d - 1) - p
+  + k)`` of its output block ``[c, d)``, rows outside the image zero for a
+  conv and -inf for a pool; the bilinear up-resize (a dense matrix,
+  ``core/interpolate.py``) the source rows under its block's support. The
+  exchange is one all-gather of fixed-size boundary slabs (each rank's
+  first and last rows, as many as any rank needs of another): it runs on
+  gloo with CPU and CUDA tensors and on NCCL, a rank may read from more
+  than one neighbour (DeepLab's rate-36 ASPP taps over a 10-row map read
+  every rank's block), and there is no send/recv ordering to deadlock. An
+  op whose blocks need no other rank's rows exchanges nothing (1x1 convs,
+  SegFormer's reduction convs where the blocks align);
+* a global mean is the local rows' sum, all-reduced, over the global count
+  (:meth:`mean`); DeepLab's image-pool branch then runs on the pooled
+  vector, whole on every rank (``layers.whole_tensors``);
+* SegFormer's attention keeps its queries on the local tokens and attends
+  to the keys and values of the whole map, gathered (:meth:`gather`) on
+  every rank;
+* the decoder's output is gathered whole before the inverse warp;
 * a tensor's global height, which its row block does not tell, is the sum
   of the ranks' block heights: all-reduced at each op of a task height's
   first frame and then read in call order (:meth:`global_height`; every
   frame runs the same ops).
 
-BN in eval mode, ReLU, dropout in eval mode and the residual adds are per
-pixel and run on the local rows. Only inference runs row-partitioned
+BN in eval mode, ReLU, GELU, LayerNorm, the ``Linear`` layers, dropout in
+eval mode and the residual adds are per pixel or per token and run on the
+local rows. Only inference runs row-partitioned
 (``DeformSegmentation.forward(train=False)`` and ``infer``).
 :data:`exchanges` counts the collectives, as the kernel wrappers count
 their launches.
@@ -64,9 +75,6 @@ from fovealseg_torch.parallel.mesh import all_gather_tensors
 
 # collectives issued by row-partitioned trunks in this process
 exchanges = 0
-
-ROADMAP_ENTRY = "ROADMAP queue 1, '--spatial for SegFormer-B5 and DeepLabV3-R101'"
-
 
 def _count() -> None:
     global exchanges
@@ -188,13 +196,13 @@ class RowShards:
         lo, hi = self.block(x.shape[2])
         return x[:, :, lo:hi]
 
-    def _fetch(self, x: torch.Tensor, n: int, needs: tuple) -> torch.Tensor:
+    def _fetch(self, x: torch.Tensor, n: int, needs: tuple, fill: float = 0.0) -> torch.Tensor:
         """This rank's needed rows of the tensor whose local block is ``x``
-        (global height ``n``): collective, every rank passes the same
-        ``needs``."""
+        (global height ``n``), rows off the image filled with ``fill``:
+        collective, every rank passes the same ``needs``."""
         top, bottom, index = _plan(self.height, self.world, self.rank, n, needs)
         b, c, h, w = x.shape
-        parts = [x.new_zeros(b, c, 1, w), x]
+        parts = [x.new_full((b, c, 1, w), fill), x]
         if top + bottom:
             slab = torch.cat([x[:, :, :top], x.new_zeros(b, c, max(top - h, 0), w),
                               x.new_zeros(b, c, max(bottom - h, 0), w),
@@ -205,19 +213,27 @@ class RowShards:
         return src.index_select(2, torch.tensor(index, dtype=torch.int64, device=x.device))
 
     # --------------------------------------------------------------------- ops
-    def conv(self, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """``conv`` on the local rows: this rank's rows of its output."""
+    def _window_rows(self, x: torch.Tensor, k: int, s: int, p: int,
+                     fill: float = 0.0) -> torch.Tensor | None:
+        """The input rows of this rank's output block of a sliding window
+        (over rows: extent ``k`` with the dilation, stride ``s``, padding
+        ``p``) on the tensor whose local block is ``x``: the rows ``[s * c -
+        p, s * (d - 1) - p + k)`` of output block ``[c, d)``; None for an
+        empty block (collective all the same)."""
         n = self.global_height(x.shape[2], x.device)
-        k = conv.dilation[0] * (conv.kernel_size[0] - 1) + 1
-        s, p = conv.stride[0], conv.padding[0]
         n_out = (n + 2 * p - k) // s + 1
         needs = tuple((s * c - p, s * (d - 1) - p + k) if d > c else None
                       for c, d in self.blocks(n_out))
-        rows = self._fetch(x, n, needs)
-        c, d = self.block(n_out)
-        wk = conv.dilation[1] * (conv.kernel_size[1] - 1) + 1
-        w_out = (x.shape[3] + 2 * conv.padding[1] - wk) // conv.stride[1] + 1
-        if d == c:
+        rows = self._fetch(x, n, needs, fill)
+        return rows if needs[self.rank] is not None else None
+
+    def conv(self, conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """``conv`` on the local rows: this rank's rows of its output."""
+        k = conv.dilation[0] * (conv.kernel_size[0] - 1) + 1
+        rows = self._window_rows(x, k, conv.stride[0], conv.padding[0])
+        if rows is None:
+            wk = conv.dilation[1] * (conv.kernel_size[1] - 1) + 1
+            w_out = (x.shape[3] + 2 * conv.padding[1] - wk) // conv.stride[1] + 1
             return x.new_zeros(x.shape[0], conv.out_channels, 0, w_out, dtype=conv.compute_dtype)
         return F.conv2d(rows.to(conv.compute_dtype), conv._cast_param("weight", conv.weight),
                         conv._cast_param("bias", conv.bias), conv.stride, (0, conv.padding[1]),
@@ -242,11 +258,22 @@ class RowShards:
             y = y.to(x.dtype)  # the per-axis rounding of core/interpolate.py
         return _resize(y, (y.shape[2], w_out), 2).to(x.dtype)
 
-    def mean(self, x: torch.Tensor) -> torch.Tensor:
+    def max_pool(self, x: torch.Tensor, k: int, s: int, p: int) -> torch.Tensor:
+        """``torch.max_pool2d(x, k, s, p)`` on the local rows: this rank's
+        rows of its output. Rows off the image are -inf, as the whole pool's
+        padding is."""
+        rows = self._window_rows(x, k, s, p, fill=float("-inf"))
+        if rows is None:
+            w_out = (x.shape[3] + 2 * p - k) // s + 1
+            return x.new_zeros(x.shape[0], x.shape[1], 0, w_out)
+        return torch.max_pool2d(rows, k, s, (0, p))
+
+    def mean(self, x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
         """The mean over (H, W) of the whole tensor: the local rows' f32 sum,
-        all-reduced, over the global count. [B, C] in ``x``'s dtype."""
+        all-reduced, over the global count. [B, C] (``keepdim``: [B, C, 1,
+        1]) in ``x``'s dtype."""
         n = self.global_height(x.shape[2], x.device)
-        total = x.to(torch.float32).sum(dim=(2, 3))
+        total = x.to(torch.float32).sum(dim=(2, 3), keepdim=keepdim)
         dist.all_reduce(total, group=self.group)
         _count()
         return (total / (n * x.shape[3])).to(x.dtype)
@@ -275,14 +302,13 @@ def row_aware(module: nn.Module) -> int:
     """Swap every ``layers.Conv2d`` of ``module`` for a :class:`RowConv2d`
     in place (the same parameters and keys); raises for another conv.
     Returns the number of convs swapped."""
-    n = 0
     for m in module.modules():
-        if type(m) is Conv2d:
-            m.__class__ = RowConv2d
-            n += 1
-        elif isinstance(m, nn.Conv2d) and type(m) is not RowConv2d:
+        if isinstance(m, nn.Conv2d) and type(m) not in (Conv2d, RowConv2d):
             raise NotImplementedError(f"row-partitioned {type(m).__name__}")
-    return n
+    convs = [m for m in module.modules() if type(m) is Conv2d]
+    for m in convs:
+        m.__class__ = RowConv2d
+    return len(convs)
 
 
 def run_trunk(encoder: nn.Module, decoder: nn.Module, x: torch.Tensor,

@@ -28,8 +28,9 @@ filled from a numpy seed, carried over with ``from_jax_variables``).
 * The serving CLI: ``--spatial 2`` gives the one-process labels on the
   decided pixels; ``--mesh 2`` with ``resnet18_nonsyn`` (each BatchStatsNorm
   takes the statistics of the whole micro-batch over the ranks) gives the
-  one-process labels on the decided pixels; ``--spatial`` with ``--mesh``,
-  with SegFormer and with DeepLab exits before any rank starts.
+  one-process labels on the decided pixels; ``--spatial`` with ``--mesh``
+  exits before any rank starts. SegFormer and DeepLab:
+  ``test_torch_parallel_spatial_encoders.py``.
 """
 
 import os
@@ -44,7 +45,7 @@ from fovealseg_tpu.models.deform_module import DeformConfig as JaxConfig
 from fovealseg_tpu.models.deform_module import DeformSegmentation as JaxDeform
 from fovealseg_tpu.parallel.mesh import make_mesh_spatial, make_spatial_infer_fn
 from fovealseg_torch.cli import infer as infer_cli
-from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
+from fovealseg_torch.models.deform_module import DeformConfig
 from fovealseg_torch.parallel import spatial
 from fovealseg_torch.parallel.launch import run_workers
 from fovealseg_torch.train.checkpoint import from_jax_variables
@@ -192,18 +193,8 @@ def test_cli_mesh_with_a_nonsyn_saliency_net(setup):
     np.testing.assert_array_equal(a[ok], b[ok])
 
 
-@pytest.mark.parametrize("flags,opts", [(["--mesh", "2"], []),
-                                        ([], ["MODEL.arch_encoder", "segformer"]),
-                                        ([], ["MODEL.arch_encoder", "deeplab"])],
-                         ids=["mesh", "segformer", "deeplab"])
+@pytest.mark.parametrize("flags,opts", [(["--mesh", "2"], [])], ids=["mesh"])
 def test_cli_spatial_refusals(flags, opts):
     """Refused before any rank starts."""
     with pytest.raises(SystemExit, match="--spatial"):
         infer_cli.main(SERVE + ["--batch", "2", "--spatial", "2"] + flags + TINY + opts)
-
-
-def test_set_spatial_refuses_an_encoder_without_rows():
-    with torch.device("meta"):
-        model = DeformSegmentation(DeformConfig(arch_encoder="deeplab"), device="meta")
-    with pytest.raises(NotImplementedError, match="--spatial for SegFormer-B5"):
-        model.set_spatial(object())

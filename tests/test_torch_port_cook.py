@@ -13,6 +13,10 @@ from fovealseg_torch.cli import cook as port_cook
 from test_cli_cook import _tiny_lvis_json
 from test_data import _cityscapes_fixture
 from test_torch_port_data import assert_same_tree
+from torch_port_zoo import no_tensorflow  # noqa: F401
+
+# the TensorBoard writers of the CLIs run here take TensorBoard's stand-in for TensorFlow
+pytestmark = pytest.mark.usefixtures("no_tensorflow")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -659,6 +659,32 @@ def test_new_encoder_slice_on_card(dev, monkeypatch, name):
 
 
 @pytest.mark.parametrize("name", ["segformer", "deeplab"])
+def test_spatial_encoder_pair_on_card(dev, monkeypatch, name):
+    """Row-partitioned serving with a cut encoder: two gloo ranks on the one
+    card give one process's labels on the card wherever its scores decide
+    them (top-two margin > 1e-4), K1 once on each rank."""
+    import torch_parallel_workers as W
+    from fovealseg_torch.parallel.launch import run_workers
+
+    host, card = _cut_slice(monkeypatch, name)
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    f = rng.uniform(0.2, 0.8, (2, 2)).astype(np.float32)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.no_grad():
+        xt, ft = torch.from_numpy(x).to(dev), torch.from_numpy(f).to(dev)
+        scores = card.infer(xt, ft)["pred_sampled"].cpu()
+        want = card.infer(xt, ft, argmax_labels=True)["pred_label"].cpu()
+    ranks = run_workers(2, W.spatial_pair_on_card, host.state_dict(), host.config, TINY_MIT, x, f,
+                        device=[0, 0], backend="gloo", timeout=300)
+    top2 = torch.sort(scores, dim=-1).values[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 1e-4
+    assert decided.float().mean() > 0.5
+    for r in ranks:
+        assert r["k1"] == 1
+        assert torch.equal(r["label"][decided], want[decided])
+
+
+@pytest.mark.parametrize("name", ["segformer", "deeplab"])
 def test_new_encoder_high_res_step_on_card(dev, monkeypatch, name):
     """One ``MODEL.loss_at_high_res`` 'nearest' train step with a new
     encoder, dropout off, on the card (TF32 off), on the host and on the host

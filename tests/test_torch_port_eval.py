@@ -37,6 +37,10 @@ from fovealseg_torch.core.interpolate import resize_nearest
 from fovealseg_torch.data import synthetic
 from fovealseg_torch.models.deform_module import DeformConfig, DeformSegmentation
 from fovealseg_torch.train.checkpoint import from_jax_variables, load_torch_weight_files
+from tests.torch_port_zoo import no_tensorflow  # noqa: F401
+
+# the TensorBoard writers of the CLIs run here take TensorBoard's stand-in for TensorFlow
+pytestmark = pytest.mark.usefixtures("no_tensorflow")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16), gaussian_radius=5,

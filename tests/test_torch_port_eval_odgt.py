@@ -42,7 +42,10 @@ from fovealseg_tpu.models.deform_module import DeformSegmentation as JaxDeform
 from fovealseg_tpu.models.segmentation_module import SegmentationModule as JaxSegModule
 from fovealseg_tpu.ops.pallas_jfa import nearest_payload_packed_pallas, nearest_payload_pallas
 from fovealseg_tpu.train.checkpoint import save_torch_checkpoint
-from tests.torch_port_zoo import cut_encoders
+from tests.torch_port_zoo import cut_encoders, no_tensorflow  # noqa: F401
+
+# the TensorBoard writers of the CLIs run here take TensorBoard's stand-in for TensorFlow
+pytestmark = pytest.mark.usefixtures("no_tensorflow")
 
 NC = 4
 TINY = dict(task_hw=(16, 16), task_hw_infer=(16, 16), saliency_hw=(16, 16), gaussian_radius=5,

@@ -33,6 +33,10 @@ from fovealseg_tpu.train.checkpoint import load_torch_checkpoint as jax_load_tor
 from fovealseg_torch.cli import eval as eval_cli
 from fovealseg_torch.cli import train as train_cli
 from fovealseg_torch.train.checkpoint import from_jax_variables
+from tests.torch_port_zoo import no_tensorflow  # noqa: F401
+
+# the TensorBoard writers of the CLIs run here take TensorBoard's stand-in for TensorFlow
+pytestmark = pytest.mark.usefixtures("no_tensorflow")
 
 TINY = ["TRAIN.task_input_size", "(16,16)", "TRAIN.saliency_input_size", "(16,16)",
         "MODEL.gaussian_radius", "5", "MODEL.arch_encoder", "hrnetv2_nodownsp_tiny",

@@ -198,14 +198,14 @@ def sleep_forever(r):
 # the 2-D (data, model) mesh and row-partitioned serving
 
 
-def tiny_model(sd, config):
+def tiny_model(sd, config, dtype=torch.float32):
     """A ``DeformSegmentation`` of ``config`` holding copies of ``sd``'s
     tensors, built on the meta device (PyTorch's own init of ~29 M
     parameters costs a rank a second or two)."""
     from fovealseg_torch.models.deform_module import DeformSegmentation
 
     with torch.device("meta"):
-        model = DeformSegmentation(config, device="meta")
+        model = DeformSegmentation(config, dtype=dtype, device="meta")
     model.load_state_dict({k: v.clone() for k, v in sd.items()}, strict=True, assign=True)
     model.device = torch.device("cpu")
     return model
@@ -418,3 +418,125 @@ def spatial_serve(r, sd, x, f, cfg_kw):
         out[name] = res
     dist.barrier()
     return out
+
+
+def cut_port_builder(mit: dict) -> None:
+    """The port's builder in this process cut as
+    ``tests/torch_port_zoo.py::cut_encoders`` cuts it: ``segformer`` builds
+    the MiT config ``mit``, ``deeplab`` one Bottleneck per layer, both with
+    drop path off."""
+    from fovealseg_torch.models import builder
+    from fovealseg_torch.models.deeplab import DeepLabEncoder
+    from fovealseg_torch.models.segformer import SegFormerEncoder
+
+    build = builder.build_encoder
+
+    def cut(arch, fc_dim=960, dtype=torch.float32):
+        if arch == "segformer":
+            return SegFormerEncoder(mit, drop_path_rate=0.0, dtype=dtype)
+        if arch == "deeplab":
+            return DeepLabEncoder(dtype=dtype, layers=(1, 1, 1, 1))
+        return build(arch, fc_dim, dtype)
+
+    builder.build_encoder = cut
+
+
+def row_ops(group, ops: dict) -> dict:
+    """The row hooks of ``models/layers.py`` on this rank's rows of the whole
+    inputs ``ops``, each case on a fresh ``RowShards`` of ``group``: this
+    rank's output block (the max pools, the rate-36 conv) or the whole
+    result (the gathers, the mean), and each case's exchanges."""
+    from fovealseg_torch.models import layers
+    from fovealseg_torch.parallel import spatial
+
+    conv = layers.conv2d(8, 8, 3, 1, 36, dilation=36)
+    conv.load_state_dict(ops["conv_state"])
+    spatial.row_aware(conv)
+
+    def zero_fill(rows):
+        fetch = rows._fetch
+        rows._fetch = lambda x, n, needs, fill=0.0: fetch(x, n, needs, 0.0)
+        return rows
+
+    pool = lambda x: layers.trunk_max_pool(x, 3, 2, 1)  # noqa: E731
+    cases = {  # name: (task height, input, op, RowShards -> RowShards)
+        "max_pool": (9, "pool9", pool, None),
+        "max_pool_zero_fill": (9, "pool9", pool, zero_fill),
+        "max_pool_empty": (16, "pool2", pool, None),
+        "gather": (9, "map9", layers.trunk_gather, None),
+        "gather_empty": (16, "pool2", layers.trunk_gather, None),
+        "gather_tokens": (9, "map9", lambda x: layers.trunk_gather(
+            x.flatten(2).transpose(1, 2), tuple(x.shape[-2:])), None),
+        "mean": (9, "map9", lambda x: layers.trunk_mean(x, keepdim=True), None),
+        "mean_empty": (16, "pool2", lambda x: layers.trunk_mean(x, keepdim=True), None),
+        "conv_rate36": (80, "conv10", conv, None),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (height, key, op, adapt) in cases.items():
+            rows = spatial.RowShards(group)
+            if adapt is not None:
+                rows = adapt(rows)
+            before = spatial.exchanges
+            with rows.running(height):
+                out[name] = op(rows.shard(ops[key]))
+            out[f"{name}_exchanges"] = spatial.exchanges - before
+        out["conv_rate36_whole"] = conv(ops["conv10"])
+    return out
+
+
+def spatial_encoders(r, sds, x, f, cfgs, mit, ops):
+    """Row-partitioned serving of the cut SegFormer and DeepLab
+    (``cut_port_builder``) over the four ranks and over ranks 0-1 (a group
+    of two; ranks 2-3 wait): per encoder the eval forward's ``pred``,
+    ``infer``'s scores and labels and the forward's exchanges, in f32 over
+    both groups and in bf16 over four ranks; and ``row_ops`` over both
+    groups. oneDNN is off in f32, as in ``spatial_serve``, and on in bf16:
+    PyTorch's own CPU convs take tens of seconds for the cut DeepLab's
+    dilated convs in bf16."""
+    from fovealseg_torch.models.deform_module import DeformConfig
+    from fovealseg_torch.parallel import spatial
+
+    torch.backends.mkldnn.enabled = False
+    cut_port_builder(mit)
+    pair = dist.new_group([0, 1])
+    xt, ft = torch.from_numpy(x), torch.from_numpy(f)
+    out = {}
+    for name, group in (("4", dist.group.WORLD), ("2", pair)):
+        if r.rank >= 2 and name == "2":
+            continue
+        res = {"ops": row_ops(group, ops)}
+        for enc, sd in sds.items():
+            for dt in ("float32", "bfloat16") if name == "4" else ("float32",):
+                torch.backends.mkldnn.enabled = dt == "bfloat16"
+                model = tiny_model(sd, DeformConfig(**cfgs[enc]), getattr(torch, dt))
+                model.set_spatial(group)
+                before = spatial.exchanges
+                with torch.no_grad():
+                    got = {"pred_forward": model(xt, ft)["pred"]}
+                    got["exchanges_forward"] = spatial.exchanges - before
+                    got.update({k: v for k, v in model.infer(xt, ft).items()
+                                if k in ("pred", "pred_sampled")})
+                    got["pred_label"] = model.infer(xt, ft, argmax_labels=True)["pred_label"]
+                res[f"{enc} {dt}"] = got
+        out[name] = res
+    dist.barrier()
+    return out
+
+
+def spatial_pair_on_card(r, sd, config, mit, x, f):
+    """Row-partitioned argmax serving of the model of ``config`` with a cut
+    encoder (``cut_port_builder``) on this rank's card, TF32 off: its
+    labels and K1's launches."""
+    from fovealseg_torch.ops import jfa
+
+    cut_port_builder(mit)
+    model = tiny_model(sd, config).to(r.device)
+    model.device = r.device
+    model.set_spatial(dist.group.WORLD)
+    before = jfa.nearest_class.launches
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), torch.no_grad():
+        label = model.infer(torch.from_numpy(x).to(r.device), torch.from_numpy(f).to(r.device),
+                            argmax_labels=True)["pred_label"]
+    torch.cuda.synchronize()
+    return {"label": label.cpu(), "k1": jfa.nearest_class.launches - before}

@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import sys
 
 import flax.linen as nn
 import jax
@@ -42,6 +43,18 @@ def two_threads_no_dropout():
     with no_dropout():
         yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def no_tensorflow():
+    """``import tensorflow`` fails in the block, so that the port's
+    TensorBoard writer (``torch.utils.tensorboard``) takes TensorBoard's own
+    stand-in for TensorFlow, as the rank processes of
+    ``test_torch_parallel_cli.py`` do: importing TensorFlow costs a process
+    ~20 s, and the event files are written all the same."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "tensorflow", None)
+        yield
 
 
 def variable_shapes(module, *args, **kwargs) -> dict:
