@@ -51,8 +51,13 @@ Phases (any failure exits non-zero):
         kernels per step, every loss finite); the flagship with
         ``MODEL.loss_at_high_res`` at b8 (K2, K5 and K5b once per step;
         'BI': K4, K5 and K5b); the train CLI (2 epochs x 3 iterations, then
-        one more epoch resumed from ``epoch_last``) and the eval CLI on its
-        epoch-3 checkpoint;
+        one more epoch resumed from ``epoch_last``; its checkpoints written
+        by ``AsyncSaver``, ``TPU.async_checkpoint``'s default) and the eval
+        CLI on its epoch-3 checkpoint; the checkpoint write of the
+        flagship's b8 f32 Adam state, two cadence epochs synchronous and
+        through ``AsyncSaver`` (seconds the training thread blocks, seconds
+        until the write drains with a training step run meanwhile, bytes),
+        both sets loading bit-equal;
      e. the other encoders and saliency nets at full width: SegFormer-B5
         (``segformer``, fc_dim 1024) and DeepLabV3-ResNet101 (``deeplab``),
         each with argmax labels and score maps through ``infer`` at b8 and b1
@@ -140,6 +145,14 @@ Phases (any failure exits non-zero):
         labels bit-equal to the host recompute; the registered operators'
         cost per call (K1 and K5 at C = 1 through the wrapper and through
         the CUDA kernel function, CUDA events);
+     j. the host-only remainder on the card at the flagship's geometry: the
+        DynamicFocus sampler's ``get_grid`` ([8, 144, 144, 1], kernel 65,
+        TF32 allowed) within 1e-5 of the host, ``int_round_scale_grid`` to
+        640x640 equal to the host's, ``deformed_unsampler`` of [8, 80, 80,
+        51] values (K4 and K5 counted once each, held bit-equal on their own
+        inputs, the output bit-equal to the host's plain recompute; CUDA
+        events and device ms), ``interp2d_apply``'s gradient within 1e-5 of
+        the host's, ``device_memory_stats()``;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -1222,6 +1235,102 @@ def train_cli(out_dir) -> tuple[dict, dict]:
     return res, counts
 
 
+def _load_tag(d, tag) -> dict:
+    import torch
+
+    from fovealseg_torch.train import checkpoint as ckpt
+
+    return {kind: torch.load(f"{d}/{kind}_epoch_{tag}.pth", map_location="cpu", weights_only=True)
+            for kind in (*ckpt.SUBMODULE_OF_FILE, "train_state")}
+
+
+def _bit_equal_trees(a, b, where="") -> int:
+    """Nested dicts, lists and tensors equal bit for bit; returns the tensors
+    compared."""
+    import torch
+
+    if torch.is_tensor(a):
+        if not (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b)):
+            raise AssertionError(f"checkpoint files differ at {where}")
+        return 1
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"checkpoint files differ at {where}: keys")
+        return sum(_bit_equal_trees(a[k], b[k], f"{where}/{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"checkpoint files differ at {where}: lengths")
+        return sum(_bit_equal_trees(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
+    if a != b:
+        raise AssertionError(f"checkpoint files differ at {where}: {a!r} != {b!r}")
+    return 0
+
+
+def checkpoint_write(card, device, out_dir) -> dict:
+    """Phase 3d: the checkpoint write of the flagship's b8 f32 state with
+    Adam (``train/checkpoint.py``), on a cadence epoch (the numbered tag and
+    the ``_last`` copies), synchronous and with ``AsyncSaver`` in turn, two
+    epochs each: the seconds the training thread blocks in
+    ``save_checkpoint``; for the saver, one training step run while the
+    write is in flight, the seconds until the write drains (from the save's
+    start) and the writer thread's own seconds; the bytes written. The two
+    writes of an epoch (the same state) load to bit-equal tensors."""
+    import os
+    import shutil
+
+    import torch
+
+    from fovealseg_torch.train import checkpoint as ckpt
+    from fovealseg_torch.train.loop import batch_controls
+
+    cfg = train_cfg()
+    state, step = _flagship_state(device, "float32", cfg)
+    batches = _batches(device, 1, SEED + 25)
+
+    def train_step():
+        step(state, {**batches[0], **batch_controls(cfg, 1, state.step, state.pool_rng)})
+
+    def tag_bytes(d, tags):
+        return sum(os.path.getsize(p) for t in tags for p in ckpt._tag_paths(d, t).values())
+
+    dirs = {"sync": f"{out_dir}/ckpt_sync", "async": f"{out_dir}/ckpt_async"}
+    saver = ckpt.AsyncSaver()
+    res = {"sync": [], "async": []}
+    train_step()
+    for epoch in (1, 2):
+        train_step()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save_checkpoint(dirs["sync"], epoch, state)
+        res["sync"].append(dict(block_s=time.perf_counter() - t,
+                                bytes=tag_bytes(dirs["sync"], (epoch, "last"))))
+        t = time.perf_counter()
+        ckpt.save_checkpoint(dirs["async"], epoch, state, saver=saver)
+        block = time.perf_counter() - t
+        train_step()  # the next epoch's first step, while the write is in flight
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t - block
+        saver.wait()
+        res["async"].append(dict(block_s=block, step_during_write_s=step_s, drain_s=time.perf_counter() - t,
+                                 write_s=saver.last_write_s, bytes=saver.last_bytes))
+        tensors = sum(_bit_equal_trees(_load_tag(dirs["sync"], tag), _load_tag(dirs["async"], tag),
+                                       f"epoch {epoch} tag {tag}") for tag in (epoch, "last"))
+        res["async"][-1]["tensors_bit_equal"] = tensors
+        for d in dirs.values():  # keep the disk to one epoch's files
+            for path in ckpt._tag_paths(d, epoch).values():
+                os.remove(path)
+        log(f"checkpoint write, epoch {epoch} (tag {epoch} + _last): sync "
+            f"{json.dumps(res['sync'][-1])}; async {json.dumps(res['async'][-1])}; the two "
+            f"sets bit-equal ({tensors} tensors) on {card}")
+    saver.close()
+    for d in dirs.values():
+        shutil.rmtree(d)
+    del state, batches
+    torch.cuda.empty_cache()
+    return res
+
+
 def train_path(card, device, out_dir):
     """Phase 3d."""
     t = time.perf_counter()
@@ -1235,10 +1344,13 @@ def train_path(card, device, out_dir):
     high_res, high_res_counts = train_high_res(device)
     cli_res, cli_counts = train_cli(out_dir)
     counts = {k: high_res_counts[k] + cli_counts[k] for k in high_res_counts}
+    reset_counts()
+    ckpt_res = checkpoint_write(card, device, out_dir)
+    check_counts("the checkpoint write", read_counts(), dict.fromkeys(counts, 0))
     seconds = time.perf_counter() - t
     log(f"phase 3d took {seconds:.1f} s on {card}")
     return numbers, counts, dict(small_train=small, train=timing, train_high_res=high_res,
-                                 train_cli=cli_res, phase_3d_s=seconds)
+                                 train_cli=cli_res, checkpoint_write=ckpt_res, phase_3d_s=seconds)
 
 
 # --------------------------------------------------------------- phase 3e
@@ -1251,10 +1363,12 @@ UNWARP_KERNELS = {"jfa_class": "nearest_class", "jfa_relpay": "nearest_payload_p
 
 
 @contextlib.contextmanager
-def kernel_inputs():
+def kernel_inputs(kernels=None):
     """Copies of the inputs of the last call of each kernel wrapper on a path
-    ({counter name: args}), taken on the way in: K1, K2 and K5 where
-    ``core/unwarp.py`` calls them, K5b where ``RowGather.backward`` does."""
+    ({counter name: args}), taken on the way in: K1, K2 and K5 (or
+    ``kernels``, {counter name: ``core/unwarp.py``'s name of the wrapper})
+    where ``core/unwarp.py`` calls them, K5b where ``RowGather.backward``
+    does."""
     import torch
 
     from fovealseg_torch.core import unwarp
@@ -1268,7 +1382,8 @@ def kernel_inputs():
             return fn(*args)
         return call
 
-    saved = {attr: getattr(unwarp, attr) for attr in UNWARP_KERNELS.values()}
+    kernels = kernels or UNWARP_KERNELS
+    saved = {attr: getattr(unwarp, attr) for attr in kernels.values()}
     backward = gather.RowGather.backward
 
     def copy_backward(ctx, grad_out):
@@ -1277,7 +1392,7 @@ def kernel_inputs():
         return backward(ctx, grad_out)
 
     try:
-        for name, attr in UNWARP_KERNELS.items():
+        for name, attr in kernels.items():
             setattr(unwarp, attr, recording(name, saved[attr]))
         gather.RowGather.backward = staticmethod(copy_backward)
         yield seen
@@ -1297,6 +1412,7 @@ def hold_on_path_inputs(label, seen, names):
 
     pairs = {"jfa_class": (jfa.nearest_class, jfa.nearest_class_plain),
              "jfa_relpay": (jfa.nearest_payload_packed, jfa.nearest_payload_packed_plain),
+             "jfa_seed": (jfa.nearest_seed, jfa.nearest_seed_plain),
              "row_gather": (gather.row_gather, gather.row_gather_plain),
              "row_gather_backward": (gather.row_gather_backward,
                                      gather.row_gather_backward_plain)}
@@ -3309,6 +3425,107 @@ def export_and_zoo_path(card, device, out_dir) -> tuple[dict, dict]:
     return {"artifact": artifact, "zoo": zoo, "bucketed": bucketed, "phase_3i_s": seconds}, counts
 
 
+# --------------------------------------------------------------- phase 3j
+
+SAMPLER_HW = (80, 80)  # the flagship's task size
+SAMPLER_KERNEL = 65  # deformed_sampler.get_grid's default window
+
+
+def host_remainder_path(card, device) -> tuple[dict, dict]:
+    """Phase 3j: the host-only remainder on the card at the flagship's
+    geometry. The DynamicFocus sampler: ``get_grid`` on a [8, 144, 144, 1]
+    deformation map (80x80 sample, kernel 65; with TF32 allowed, which its
+    full-f32 products must ignore) against the host's f32 result within
+    1e-5; ``int_round_scale_grid`` to 640x640 equal to the host's on the
+    same grid; ``deformed_unsampler`` of [8, 80, 80, 51] f32 values to
+    640x640, its launches counted (K4 and K5 once each), each held bit-equal
+    to its plain version on the inputs the call gave it, the output
+    bit-equal to the host's recompute through the plain versions, timed in
+    CUDA events and torch.profiler device ms. ``interp2d_apply``'s gradient
+    on the card against the host's (within 1e-5; the blend's backward
+    accumulates in another order), and ``device_memory_stats()``."""
+    import numpy as np
+    import torch
+
+    from fovealseg_torch.core import deformed_sampler as ds
+    from fovealseg_torch.native.interp2d import build_interp_plan, interp2d_apply
+    from fovealseg_torch.tools.profile_gather import device_ms, events_ms
+    from fovealseg_torch.utils.observe import device_memory_stats
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 40)
+    hs, ws = SAMPLER_HW
+    pad = SAMPLER_KERNEL // 2
+    dm = torch.from_numpy(rng.uniform(0, 1, (8, hs + 2 * pad, ws + 2 * pad, 1)).astype(np.float32))
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.fp32_precision
+    matmul.fp32_precision = "tf32"
+    try:
+        dm_card = dm.to(device)
+        grid = ds.get_grid(dm_card, SAMPLER_HW, SAMPLER_KERNEL)
+        torch.cuda.synchronize()
+        grid_ms = events_ms(lambda: ds.get_grid(dm_card, SAMPLER_HW, SAMPLER_KERNEL), 10)
+    finally:
+        matmul.fp32_precision = prev
+    host_grid = ds.get_grid(dm, SAMPLER_HW, SAMPLER_KERNEL)
+    grid_err = (grid.cpu() - host_grid).abs().max().item()
+    if not grid_err <= 1e-5:
+        raise AssertionError(f"get_grid on the card is {grid_err} from the host's f32 result")
+    ig = ds.int_round_scale_grid(host_grid, (CANVAS, CANVAS))
+    if not torch.equal(ds.int_round_scale_grid(host_grid.to(device), (CANVAS, CANVAS)).cpu(), ig):
+        raise AssertionError("int_round_scale_grid on the card differs from the host's")
+    ig_card = ds.int_round_scale_grid(grid, (CANVAS, CANVAS))
+    moved = (ig_card.cpu() != ig).any(-1).sum().item()
+
+    values = torch.from_numpy(rng.standard_normal((8, hs, ws, 51)).astype(np.float32))
+    v_card = values.to(device)
+    ig_card = ig.to(device)
+    torch.cuda.synchronize()
+    reset_counts()
+    with kernel_inputs({"jfa_seed": "nearest_seed", "row_gather": "row_gather"}) as seen:
+        out = ds.deformed_unsampler(v_card, ig_card, (CANVAS, CANVAS))
+    counts = read_counts()
+    check_counts("deformed_unsampler [8, 80, 80, 51] -> 640x640", counts,
+                 {**dict.fromkeys(counts, 0), "jfa_seed": 1, "row_gather": 1})
+    hold_on_path_inputs("deformed_unsampler", seen, ("jfa_seed", "row_gather"))
+    host = ds.deformed_unsampler(values, ig, (CANVAS, CANVAS))
+    if not torch.equal(out.cpu().view(torch.int32), host.view(torch.int32)):
+        raise AssertionError("deformed_unsampler on the card != the host's plain recompute")
+    landed = seen["jfa_seed"][0].float().mean().item()
+
+    def call():
+        return ds.deformed_unsampler(v_card, ig_card, (CANVAS, CANVAS))
+
+    unsampler = dict(ms=events_ms(call, 20), device_ms=device_ms(call, 20)[0],
+                     landed_share=landed)
+
+    pts = np.argwhere(rng.uniform(0, 1, (hs, ws)) > 0.9).astype(np.float64)
+    pts = np.concatenate([pts, [[0, 0], [0, ws - 1], [hs - 1, 0], [hs - 1, ws - 1]]])
+    corner, weight = build_interp_plan(pts, hs, ws)
+    vals = torch.from_numpy(rng.standard_normal((len(pts), 51)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((hs * ws, 51)).astype(np.float32))
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        v = vals.to(dev).requires_grad_(True)
+        (interp2d_apply(v, corner, weight) * cot.to(dev)).sum().backward()
+        grads.append(v.grad.cpu())
+    interp_err = (grads[0] - grads[1]).abs().max().item()
+    if not interp_err <= 1e-5:
+        raise AssertionError(f"interp2d_apply's gradient on the card is {interp_err} from the host's")
+    mem = device_memory_stats()
+    res = dict(get_grid_max_abs_err=grid_err, get_grid_ms=grid_ms, int_grid_pixels_moved=moved,
+               deformed_unsampler=unsampler, interp2d_grad_max_abs_err=interp_err,
+               device_memory_stats=mem, phase_3j_s=time.perf_counter() - t_phase)
+    log(f"phase 3j: get_grid [8, 144, 144, 1] card vs host max abs err {grid_err:.3g} "
+        f"({grid_ms:.4f} ms events; {moved} of {8 * hs * ws} snapped pixels move with the card's "
+        f"grid); int_round_scale_grid equal; deformed_unsampler [8, 80, 80, 51] -> 640x640 "
+        f"bit-equal to the host's plain recompute, {unsampler['ms']:.4f} ms events, "
+        f"{unsampler['device_ms']:.4f} ms device, {landed:.4f} of the canvas landed; "
+        f"interp2d_apply gradient max abs err {interp_err:.3g}; device_memory_stats "
+        f"{json.dumps(mem)}; {res['phase_3j_s']:.1f} s on {card}")
+    return res, {"deformed_sampler": counts}
+
+
 def main() -> int:
     import torch
 
@@ -3366,6 +3583,9 @@ def main() -> int:
         "BucketedDeform")
     with tempfile.TemporaryDirectory() as out_dir:
         export_zoo, export_counts = export_and_zoo_path(card, device, out_dir)
+    log("== phase 3j: the host-only remainder on the card (the DynamicFocus sampler, "
+        "interp2d_apply's gradient, device_memory_stats)")
+    remainder, remainder_counts = host_remainder_path(card, device)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -3389,7 +3609,8 @@ def main() -> int:
                    **{path: c.get(name, 0) for path, c in parallel_counts.items()},
                    **{path: c[name] for path, c in real_counts.items()},
                    **{path: c.get(name, 0) for path, c in mesh_counts.items()},
-                   **{path: c[name] for path, c in export_counts.items()}}
+                   **{path: c[name] for path, c in export_counts.items()},
+                   **{path: c[name] for path, c in remainder_counts.items()}}
         launches = sum(by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was launched no time on the main paths")
@@ -3422,6 +3643,7 @@ def main() -> int:
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
                     "encoders": encoders, "parallel": parallel, "real_data": real_data,
                     "mesh_and_spatial": mesh_spatial, "export_and_zoo": export_zoo,
+                    "host_remainder": remainder,
                     "small_input_label_agreement": small_label_agreement, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -92,24 +92,27 @@ def parse_devices(spec: str) -> list[int]:
 
 def _resume(cfg, state, log) -> None:
     """``TRAIN.auto_resume`` (start_epoch 0 and a checkpoint in DIR: resume
-    from the newer of ``_last`` and the largest numbered epoch) and
+    from the newer of ``_last`` and the largest complete numbered epoch; a
+    ``_last`` set that an interrupted write left incomplete is skipped) and
     ``TRAIN.start_epoch > 0`` (epoch N's files, else ``_last``)."""
     from fovealseg_torch.train import checkpoint as ckpt
 
     d = cfg.DIR
-    name = None
-    if cfg.TRAIN.start_epoch == 0 and cfg.TRAIN.auto_resume and ckpt.has_checkpoint(d, "last"):
-        name = "last"
-        ckpt.load_checkpoint(d, name, state)
-        cfg.TRAIN.start_epoch = state.step // max(cfg.TRAIN.epoch_iters, 1)
-        numbered = [int(m.group(1)) for f in os.listdir(d)
+    if cfg.TRAIN.start_epoch == 0 and cfg.TRAIN.auto_resume:
+        numbered = [int(m.group(1)) for f in (os.listdir(d) if os.path.isdir(d) else [])
                     if (m := re.fullmatch(r"train_state_epoch_(\d+)\.pth", f))]
-        newer = max(numbered, default=0)
-        if newer > cfg.TRAIN.start_epoch and ckpt.has_checkpoint(d, newer):
-            name = newer
+        newest = max((n for n in numbered if ckpt.has_checkpoint(d, n)), default=0)
+        name = None
+        if ckpt.has_checkpoint(d, "last"):
+            name = "last"
             ckpt.load_checkpoint(d, name, state)
             cfg.TRAIN.start_epoch = state.step // max(cfg.TRAIN.epoch_iters, 1)
-        log.info("auto-resume from epoch_%s: start_epoch=%d", name, cfg.TRAIN.start_epoch)
+        if newest > cfg.TRAIN.start_epoch:
+            name = newest
+            ckpt.load_checkpoint(d, name, state)
+            cfg.TRAIN.start_epoch = state.step // max(cfg.TRAIN.epoch_iters, 1)
+        if name is not None:
+            log.info("auto-resume from epoch_%s: start_epoch=%d", name, cfg.TRAIN.start_epoch)
     elif cfg.TRAIN.start_epoch > 0:
         epoch = cfg.TRAIN.start_epoch
         name = epoch if ckpt.has_checkpoint(d, epoch) else "last"

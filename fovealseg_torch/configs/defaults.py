@@ -198,8 +198,12 @@ def get_default_cfg() -> CfgNode:
     # ------------------------------------------------------------------ TPU
     # Kept under the JAX package's group name so configs and dotlists
     # written for cli/infer.py load unchanged. The port reads
-    # compute_dtype ("bfloat16" | "float32") and jfa_iters (0 = derive the
-    # jump-flood round count from the grid); the rest are accepted and unused.
+    # compute_dtype ("bfloat16" | "float32"), jfa_iters (0 = derive the
+    # jump-flood round count from the grid) and async_checkpoint (write the
+    # training checkpoints in a background thread after a host snapshot,
+    # train/checkpoint.py::AsyncSaver); the rest are accepted and unused.
+    # torch_ckpt_mirror stays unread on purpose: the port's checkpoint already
+    # is the reference's 4-file .pth set that the JAX package's mirror writes.
     _C.TPU = CfgNode()
     _C.TPU.compute_dtype = "bfloat16"
     _C.TPU.sync_bn = True

@@ -174,3 +174,11 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         idx = torch.from_numpy(_nearest_index(w, ow)).to(x.device, torch.int64)
         x = torch.index_select(x, x.dim() - 2, idx)
     return x
+
+
+def resize_1d(v: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Torch-bilinear resize of a 1-D vector (the Gaussian kernel's
+    aspect-ratio stretch), one full-f32 product with the dense matrix."""
+    m = _resize_matrix(v.shape[-1], out_size, v.device).to(v.dtype)
+    with full_f32_matmul():
+        return torch.matmul(m, v)

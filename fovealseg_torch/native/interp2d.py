@@ -10,6 +10,10 @@ grid and the 3-corner blend run in stock PyTorch on the prediction's device.
 
 * :func:`build_interp_plan`, :func:`_border_valid_mask`,
   :func:`build_fill_plan`: the host plan;
+* :func:`interp2d_dense` (the reference ``Interp2D``'s call shape, in numpy)
+  and :func:`interp2d_apply` (the blend of a plan as a torch function of the
+  values on their device, differentiable with respect to the values only,
+  as ``Interp2D`` is);
 * :func:`fill_missing_tri`, :func:`unwarp_prediction_tri`: the host oracle,
   per sample in numpy;
 * :func:`unwarp_prediction_tri_device`: the production path of the eval CLI
@@ -43,6 +47,23 @@ def build_interp_plan(points: np.ndarray, h: int, w: int):
         corner[~inside, 0] = nearest_neighbor(points, q[~inside])
         weight[~inside, 0] = 1.0
     return corner, weight
+
+
+def interp2d_dense(points: np.ndarray, values: np.ndarray, h: int, w: int) -> np.ndarray:
+    """The reference ``Interp2D``'s call shape: points [N, 2] (row, col),
+    values [N, C] -> dense [C, h, w] (channels first, as it returns)."""
+    corner, weight = build_interp_plan(points, h, w)
+    dense = (values[corner] * weight[..., None]).sum(axis=1)  # [h*w, C]
+    return dense.T.reshape(values.shape[1], h, w)
+
+
+def interp2d_apply(values: torch.Tensor, corner, weight) -> torch.Tensor:
+    """The blend of a :func:`build_interp_plan` plan: values [N, C] ->
+    [h*w, C], on the values' device. Gradients flow to ``values`` only; the
+    plan is data."""
+    corner = torch.as_tensor(np.asarray(corner), device=values.device).to(torch.int64)
+    weight = torch.as_tensor(np.asarray(weight), device=values.device).to(values.dtype)
+    return (values[corner] * weight[..., None]).sum(dim=1)
 
 
 def _border_valid_mask(valid: np.ndarray) -> np.ndarray:

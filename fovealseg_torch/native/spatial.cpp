@@ -1,12 +1,10 @@
-// Planar Delaunay triangulation with barycentric point location, and an
-// exact grid-bucketed nearest-neighbour query: the host half of the exact
-// 'tri' hole fill (fovealseg_torch/native/interp2d.py). The port's own copy
-// of the three entry points of fovealseg_tpu/native/spatial.cpp that 'tri'
-// uses, unchanged, so that both packages build the same plan.
-//
-// Built at first use by fovealseg_torch/native/spatial.py with
-//   g++ -O3 -fPIC -std=c++17 -shared
-// and loaded with ctypes.
+// Planar Delaunay triangulation with barycentric point location, an exact
+// grid-bucketed nearest-neighbour query, the planar convex hull and the
+// directed Hausdorff distance: the port's copy of the entry points of
+// fovealseg_tpu/native/spatial.cpp, unchanged, so that both packages build
+// the same 'tri' plan. Built at first use, with distance.cpp and kdtree.cpp,
+// into one library by fovealseg_torch/native/spatial.py
+// (g++ -O3 -fPIC -std=c++17 -shared) and loaded with ctypes.
 
 #include <algorithm>
 #include <cmath>
@@ -259,6 +257,60 @@ void nearest_neighbor(const double* points, int n, const double* queries,
     }
     out_idx[j] = bi;
   }
+}
+
+// Planar convex hull by Andrew's monotone chain (qhull.pyx ConvexHull
+// equivalent for the 2-D case the framework uses).  Writes the hull vertex
+// indices in counterclockwise order into out_idx (caller buffer of size n)
+// and returns the hull size.  Collinear boundary points are dropped
+// (matching qhull's default, which keeps only extreme points).
+int convex_hull(const double* points, int n, int32_t* out_idx) {
+  if (n <= 0) return 0;
+  std::vector<int> order(n);
+  for (int i = 0; i < n; i++) order[i] = i;
+  std::sort(order.begin(), order.end(), [&](int a, int b) {
+    double ax = points[2 * a], ay = points[2 * a + 1];
+    double bx = points[2 * b], by = points[2 * b + 1];
+    return ax < bx || (ax == bx && ay < by);
+  });
+  auto cross = [&](int o, int a, int b) {
+    double ox = points[2 * o], oy = points[2 * o + 1];
+    return (points[2 * a] - ox) * (points[2 * b + 1] - oy) -
+           (points[2 * a + 1] - oy) * (points[2 * b] - ox);
+  };
+  std::vector<int> h(2 * n);
+  int k = 0;
+  for (int ii = 0; ii < n; ii++) {  // lower chain
+    int i = order[ii];
+    while (k >= 2 && cross(h[k - 2], h[k - 1], i) <= 0) k--;
+    h[k++] = i;
+  }
+  int lower = k + 1;
+  for (int ii = n - 2; ii >= 0; ii--) {  // upper chain
+    int i = order[ii];
+    while (k >= lower && cross(h[k - 2], h[k - 1], i) <= 0) k--;
+    h[k++] = i;
+  }
+  int m = (n == 1) ? 1 : k - 1;  // last point == first point
+  for (int i = 0; i < m; i++) out_idx[i] = h[i];
+  return m;
+}
+
+// Directed Hausdorff distance from set A (na x 2) to set B (nb x 2) with the
+// standard early-break scan (spatial/_hausdorff.pyx:23 equivalent).
+double directed_hausdorff(const double* a, int na, const double* b, int nb) {
+  double cmax = 0.0;
+  for (int i = 0; i < na; i++) {
+    double cmin = 1e300;
+    for (int j = 0; j < nb; j++) {
+      double dx = a[2 * i] - b[2 * j], dy = a[2 * i + 1] - b[2 * j + 1];
+      double d = dx * dx + dy * dy;
+      if (d < cmin) cmin = d;
+      if (cmin <= cmax) break;  // early break
+    }
+    if (cmin > cmax && cmin < 1e300) cmax = cmin;
+  }
+  return std::sqrt(cmax);
 }
 
 }  // extern "C"

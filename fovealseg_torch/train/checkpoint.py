@@ -23,8 +23,15 @@
   ``load_torch_checkpoint`` reads) plus ``train_state_epoch_{N}.pth`` with the
   optimizer state, the step count, the dropout generator's state and the
   pretrain-pool draw's state. Each numbered epoch also refreshes the
-  ``_last`` copies; an off-cadence epoch writes only those. Writes are
-  synchronous, the ``_last`` files after the numbered ones. Under data
+  ``_last`` copies; an off-cadence epoch writes only those. Each tag's
+  ``train_state`` file is removed before its first weight file is replaced
+  and written after its last one, so a crash mid-write never leaves a set
+  that :func:`has_checkpoint` accepts with weights of one save beside the
+  state of another. Without a saver the write is synchronous, the ``_last``
+  files after the numbered ones; with an :class:`AsyncSaver`
+  (``TPU.async_checkpoint``) the training thread only snapshots the state
+  into host buffers, and a background thread writes the numbered files and
+  then copies them to the ``_last`` names. Under data
   parallelism rank 0 writes and every rank loads; the port's own
   checkpoint loads strictly. On a 2-D mesh (``state.mesh``) every rank
   gathers the sharded weights and their optimizer state whole
@@ -35,8 +42,12 @@
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
+import shutil
+import threading
+import time
 from collections.abc import Mapping
 
 import numpy as np
@@ -154,13 +165,158 @@ def _write(path: str, obj) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> list[str]:
+def _copy(src: str, dst: str) -> None:
+    """A finished file copied through a temporary file, as :func:`_write`."""
+    tmp = f"{dst}.tmp"
+    shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
+
+
+def _tag_paths(ckpt_dir: str, tag) -> dict[str, str]:
+    """{file kind: path} of one tag, ``train_state`` last."""
+    return {kind: os.path.join(ckpt_dir, f"{kind}_epoch_{tag}.pth")
+            for kind in (*SUBMODULE_OF_FILE, "train_state")}
+
+
+def _write_tag(ckpt_dir: str, tag, put) -> list[str]:
+    """Write one tag's files with ``put(kind, path)``: its ``train_state``
+    file removed first and written last, so that an interrupted write leaves
+    a set that :func:`has_checkpoint` refuses."""
+    paths = _tag_paths(ckpt_dir, tag)
+    if os.path.exists(paths["train_state"]):
+        os.remove(paths["train_state"])
+    for kind, path in paths.items():
+        put(kind, path)
+    return list(paths.values())
+
+
+def _files(sd: Mapping[str, torch.Tensor], osd: dict, state) -> dict[str, dict]:
+    """The contents of one tag's files: the 4-file set, then ``train_state``
+    (the optimizer state dict ``osd`` and ``state``'s step, dropout
+    generator and pool draw, read now)."""
+    files = weight_files(sd)
+    files["train_state"] = {
+        "optimizer": osd,
+        "step": int(state.step),
+        "generator": state.generator.get_state(),
+        "pool_rng": state.pool_rng.getstate(),
+    }
+    return files
+
+
+class AsyncSaver:
+    """The overlapped checkpoint write (``TPU.async_checkpoint``; the JAX
+    package's ``AsyncSaver``).
+
+    :meth:`save` blocks only for the snapshot: the model's state dict and
+    the optimizer's state are copied from the card into pinned host buffers
+    (``non_blocking``, then one event waited on), allocated at the first save
+    and reused; the step, the dropout generator's state and the pool draw's
+    state are taken at the same moment. The snapshot is whole when ``save``
+    returns, so the next step may update the parameters and the optimizer
+    state in place. A background thread then writes the files: the numbered
+    tag through :func:`_write`, then the ``_last`` copies as file copies of
+    the finished files (no second snapshot, no second ``torch.save``); an
+    off-cadence save writes only ``_last``. One write is in flight at a
+    time: :meth:`save`, :meth:`wait` and :meth:`close` first drain the
+    previous one, and an exception raised in the writer is raised there.
+
+    ``last_write_s`` (the writer thread's seconds) and ``last_bytes`` (the
+    bytes written) describe the latest write.
+    """
+
+    def __init__(self):
+        self._buffers: dict = {}
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self.last_write_s = 0.0
+        self.last_bytes = 0
+
+    def _drain(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def _buffer(self, key, v: torch.Tensor) -> torch.Tensor:
+        buf = self._buffers.get(key)
+        if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+            buf = torch.empty(v.shape, dtype=v.dtype, device="cpu", pin_memory=v.is_cuda)
+            self._buffers[key] = buf
+        buf.copy_(v.detach(), non_blocking=v.is_cuda)
+        return buf
+
+    def _snapshot(self, sd: Mapping[str, torch.Tensor], osd: dict) -> tuple[dict, dict]:
+        """Host copies of a state dict and an optimizer state dict in this
+        saver's buffers; complete on return."""
+        tensors = [v for v in sd.values() if torch.is_tensor(v)]
+        host_sd = {k: self._buffer(("model", k), v) for k, v in sd.items()}
+        state = {}
+        for idx, entry in osd["state"].items():
+            tensors += [v for v in entry.values() if torch.is_tensor(v)]
+            state[idx] = {name: self._buffer(("optimizer", idx, name), v) if torch.is_tensor(v)
+                          else copy.deepcopy(v) for name, v in entry.items()}
+        for dev in {v.device for v in tensors if v.is_cuda}:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            done.synchronize()
+        return host_sd, {**osd, "state": state, "param_groups": copy.deepcopy(osd["param_groups"])}
+
+    def save(self, ckpt_dir: str, epoch, state, only_last: bool = False,
+             gathered: tuple[dict, dict] | None = None) -> list[str]:
+        """Drain the previous write, snapshot ``state`` (or take
+        ``gathered``, a 2-D mesh's ``(sd, osd)``, which are fresh host copies
+        already) and start writing ``epoch``'s tag and the ``_last`` copies
+        (only ``_last`` with ``only_last``). Returns the paths it writes."""
+        self._drain()
+        if gathered is None:
+            gathered = self._snapshot(state.model.state_dict(), state.optimizer.state_dict())
+        files = _files(*gathered, state)
+        tags = ["last"] if only_last else [epoch, "last"]
+
+        def write():
+            t0 = time.perf_counter()
+            _write_tag(ckpt_dir, tags[0], lambda kind, path: _write(path, files[kind]))
+            if len(tags) > 1:
+                src = _tag_paths(ckpt_dir, tags[0])
+                _write_tag(ckpt_dir, "last", lambda kind, path: _copy(src[kind], path))
+            self.last_bytes = sum(os.path.getsize(p) for tag in tags
+                                  for p in _tag_paths(ckpt_dir, tag).values())
+            self.last_write_s = time.perf_counter() - t0
+
+        def run():
+            try:
+                write()
+            except BaseException as e:  # raised at the next drain
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name="checkpoint-writer", daemon=True)
+        self._thread.start()
+        return [p for tag in tags for p in _tag_paths(ckpt_dir, tag).values()]
+
+    def wait(self) -> None:
+        """Block until the write in flight is on disk; raise its error."""
+        self._drain()
+
+    def close(self) -> None:
+        """Drain the write in flight and free the host buffers."""
+        try:
+            self._drain()
+        finally:
+            self._buffers.clear()
+
+
+def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False,
+                    saver: AsyncSaver | None = None) -> list[str]:
     """Write ``state`` (``train/step.py::TrainState``) for ``epoch``: the
     4-file set ``{kind}_epoch_{epoch}.pth`` and ``train_state_epoch_{epoch}.pth``,
     then the ``_last`` copies; with ``only_last`` just the ``_last`` files.
     In a process group only rank 0 writes (the others return at once; on a
-    2-D mesh after the collective gather of the shards). Returns the written
-    paths."""
+    2-D mesh after the collective gather of the shards). ``saver``: write in
+    its background thread after a snapshot (see :class:`AsyncSaver`); else
+    synchronously. Returns the written paths."""
     if state.mesh is not None:
         from fovealseg_torch.parallel.mesh import gather_state_2d
 
@@ -170,22 +326,15 @@ def save_checkpoint(ckpt_dir: str, epoch, state, only_last: bool = False) -> lis
     if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
         return []
     os.makedirs(ckpt_dir, exist_ok=True)
+    if saver is not None:
+        return saver.save(ckpt_dir, epoch, state, only_last, None if sd is None else (sd, osd))
     if sd is None:
         sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
         osd = state.optimizer.state_dict()
-    files = weight_files(sd)
-    files["train_state"] = {
-        "optimizer": osd,
-        "step": int(state.step),
-        "generator": state.generator.get_state(),
-        "pool_rng": state.pool_rng.getstate(),
-    }
+    files = _files(sd, osd, state)
     written = []
     for tag in (["last"] if only_last else [epoch, "last"]):
-        for kind, obj in files.items():
-            path = os.path.join(ckpt_dir, f"{kind}_epoch_{tag}.pth")
-            _write(path, obj)
-            written.append(path)
+        written += _write_tag(ckpt_dir, tag, lambda kind, path: _write(path, files[kind]))
     return written
 
 
@@ -215,8 +364,7 @@ def save_torch_checkpoint(ckpt_dir: str, tag, model: torch.nn.Module,
 
 def has_checkpoint(ckpt_dir: str, epoch) -> bool:
     """Whether ``ckpt_dir`` holds the port's full checkpoint for ``epoch``."""
-    return all(os.path.exists(os.path.join(ckpt_dir, f"{kind}_epoch_{epoch}.pth"))
-               for kind in (*SUBMODULE_OF_FILE, "train_state"))
+    return all(os.path.exists(p) for p in _tag_paths(ckpt_dir, epoch).values())
 
 
 def load_checkpoint(ckpt_dir: str, epoch, state) -> None:

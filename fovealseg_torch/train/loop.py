@@ -186,7 +186,9 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
     and stops. ``visual_fn(state, epoch)`` runs on the reference's cadence
     (``epoch % 10 == 1``) when ``TRAIN.train_eval_visualise``, on every rank
     (it writes on rank 0). In a process group only rank 0 writes (see the
-    module's note)."""
+    module's note). ``TPU.async_checkpoint`` writes each checkpoint in the
+    background (``train/checkpoint.py::AsyncSaver``); every write is on disk
+    when ``fit`` returns, and a writer's error is raised."""
     import torch.distributed as dist
 
     from fovealseg_torch.utils.observe import SummaryWriter
@@ -202,40 +204,48 @@ def fit(cfg, state, train_step: Callable, eval_step: Callable,
     writer = SummaryWriter(os.path.join(ckpt_dir, "tensorboard")) if main else None
     profile_dir = cfg.TPU.profile_dir if main else None
     profiled = False
-    for epoch0 in range(cfg.TRAIN.start_epoch, cfg.TRAIN.num_epoch):
-        epoch = epoch0 + 1
-        if not cfg.TRAIN.skip_train_for_eval:
-            def run(epoch=epoch):
-                return train_one_epoch(train_step, state, train_loader(epoch), epoch, cfg,
-                                       history)
-            if profile_dir and not profiled:
-                profiled = True
-                summary = _profiled(profile_dir, run)
-            else:
-                summary = run()
-            log.info("epoch %d train: %s", epoch, json.dumps(summary))
-            if visual_fn is not None and cfg.TRAIN.train_eval_visualise and epoch % 10 == 1:
-                visual_fn(state, epoch)  # every rank: a sharded model's forward is collective
+    # TPU.async_checkpoint: the write overlaps the next epoch (drained at the
+    # next save and when fit ends, also when an epoch raises)
+    saver = ckpt.AsyncSaver() if cfg.TPU.async_checkpoint else None
+    try:
+        for epoch0 in range(cfg.TRAIN.start_epoch, cfg.TRAIN.num_epoch):
+            epoch = epoch0 + 1
+            if not cfg.TRAIN.skip_train_for_eval:
+                def run(epoch=epoch):
+                    return train_one_epoch(train_step, state, train_loader(epoch), epoch, cfg,
+                                           history)
+                if profile_dir and not profiled:
+                    profiled = True
+                    summary = _profiled(profile_dir, run)
+                else:
+                    summary = run()
+                log.info("epoch %d train: %s", epoch, json.dumps(summary))
+                if visual_fn is not None and cfg.TRAIN.train_eval_visualise and epoch % 10 == 1:
+                    visual_fn(state, epoch)  # every rank: a sharded model's forward is collective
+                if main:
+                    writer.add_scalar("Loss/train", summary["loss"], epoch)
+                    writer.add_scalar("Acc/train", summary["acc"], epoch)
+                    writer.add_scalar("edge_loss/train", summary["edge_loss"], epoch)
+                if cfg.TRAIN.save_checkpoint:
+                    on_cadence = (epoch % cfg.TRAIN.checkpoint_per_epoch == 0
+                                  or epoch == cfg.TRAIN.num_epoch)
+                    ckpt.save_checkpoint(ckpt_dir, epoch, state, only_last=not on_cadence,
+                                         saver=saver)
+            if epoch % cfg.TRAIN.eval_per_epoch == 0 or cfg.TRAIN.skip_train_for_eval:
+                mets = evaluate_1epoch(eval_step, state, val_loader())
+                log.info("epoch %d eval: %s", epoch, json.dumps(mets))
+                eval_history.append({"epoch": epoch, **mets})
+                if main:
+                    for k, v in mets.items():
+                        writer.add_scalar(f"{k}/val", v, epoch)
             if main:
-                writer.add_scalar("Loss/train", summary["loss"], epoch)
-                writer.add_scalar("Acc/train", summary["acc"], epoch)
-                writer.add_scalar("edge_loss/train", summary["edge_loss"], epoch)
-            if cfg.TRAIN.save_checkpoint:
-                on_cadence = (epoch % cfg.TRAIN.checkpoint_per_epoch == 0
-                              or epoch == cfg.TRAIN.num_epoch)
-                ckpt.save_checkpoint(ckpt_dir, epoch, state, only_last=not on_cadence)
-        if epoch % cfg.TRAIN.eval_per_epoch == 0 or cfg.TRAIN.skip_train_for_eval:
-            mets = evaluate_1epoch(eval_step, state, val_loader())
-            log.info("epoch %d eval: %s", epoch, json.dumps(mets))
-            eval_history.append({"epoch": epoch, **mets})
-            if main:
-                for k, v in mets.items():
-                    writer.add_scalar(f"{k}/val", v, epoch)
-        if main:
-            write_history_csv(os.path.join(ckpt_dir, HISTORY), history)
-            write_history_csv(os.path.join(ckpt_dir, EVAL_HISTORY), eval_history)
-        if cfg.TRAIN.skip_train_for_eval:
-            break
+                write_history_csv(os.path.join(ckpt_dir, HISTORY), history)
+                write_history_csv(os.path.join(ckpt_dir, EVAL_HISTORY), eval_history)
+            if cfg.TRAIN.skip_train_for_eval:
+                break
+    finally:
+        if saver is not None:
+            saver.close()
     if main:
         writer.close()
     return state

@@ -903,3 +903,73 @@ def test_tiny_artifact_on_card_bit_equal_to_live(dev, tmp_path, scores):
         [0, 1, 1] if scores else [1, 0, 0])
     want = model.infer(x, f, argmax_labels=not scores)["pred_sampled" if scores else "pred_label"]
     assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+def test_deformed_sampler_on_card_matches_host(dev):
+    """The DynamicFocus sampler on the card: ``get_grid`` within 1e-5 of the
+    host's f32 result (TF32 on, as the train CLI sets it: the products must
+    stay full f32), ``int_round_scale_grid`` equal, and ``deformed_unsampler``
+    bit-equal to its CPU run, launching K4 and K5 once each."""
+    from fovealseg_torch.core import deformed_sampler as ds
+    from fovealseg_torch.ops import gather
+
+    rng = np.random.default_rng(12)
+    k, hs = 15, 20
+    dm = torch.from_numpy(rng.uniform(0, 1, (2, hs + k - 1, hs + k - 1, 1)).astype(np.float32))
+    prev = torch.backends.cuda.matmul.fp32_precision
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    try:
+        grid = ds.get_grid(dm.to(dev), (hs, hs), kernel_size=k)
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = prev
+    ref_grid = ds.get_grid(dm, (hs, hs), kernel_size=k)
+    torch.testing.assert_close(grid.cpu(), ref_grid, rtol=1e-5, atol=1e-5)
+    ig = ds.int_round_scale_grid(ref_grid, (96, 96))
+    assert torch.equal(ds.int_round_scale_grid(ref_grid.to(dev), (96, 96)).cpu(), ig)
+    values = torch.from_numpy(rng.normal(size=(2, hs, hs, 5)).astype(np.float32))
+    before = (jfa.nearest_seed.launches, gather.row_gather.launches)
+    got = ds.deformed_unsampler(values.to(dev), ig.to(dev), (96, 96))
+    torch.cuda.synchronize()
+    assert (jfa.nearest_seed.launches - before[0], gather.row_gather.launches - before[1]) == (1, 1)
+    want = ds.deformed_unsampler(values, ig, (96, 96))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_async_saver_with_card_tensors(dev, tmp_path):
+    """``AsyncSaver`` on a state on the card: pinned snapshot buffers for the
+    card's tensors, files that load bit-equal to the synchronous write's, and
+    the snapshot taken at ``save()`` although the parameters change right
+    after it."""
+    import random
+
+    from fovealseg_torch.train import checkpoint as ckpt
+    from fovealseg_torch.train.step import TrainState
+
+    torch.manual_seed(0)
+    model = torch.nn.ModuleDict({n: torch.nn.Linear(64, 32) for n in ckpt.SUBMODULE_OF_FILE.values()})
+    model = model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=0.1, foreach=True)
+    sum(m(torch.ones(4, 64, device=dev)).sum() for m in model.values()).backward()
+    opt.step()
+    state = TrainState(model, opt, 1, torch.Generator(device=dev).manual_seed(1), random.Random(1))
+    ckpt.save_checkpoint(str(tmp_path / "sync"), 1, state)
+    saver = ckpt.AsyncSaver()
+    ckpt.save_checkpoint(str(tmp_path / "async"), 1, state, saver=saver)
+    # every snapshot of a card tensor is pinned (Adam's step count lives on the host)
+    assert all(b.is_pinned() == (k[-1] != "step") for k, b in saver._buffers.items())
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(1.0)
+    saver.close()
+    for tag in (1, "last"):
+        for kind in (*ckpt.SUBMODULE_OF_FILE, "train_state"):
+            a = torch.load(tmp_path / "sync" / f"{kind}_epoch_{tag}.pth", map_location="cpu",
+                           weights_only=True)
+            b = torch.load(tmp_path / "async" / f"{kind}_epoch_{tag}.pth", map_location="cpu",
+                           weights_only=True)
+            if kind == "train_state":
+                a, b = a["optimizer"]["state"], b["optimizer"]["state"]
+                a = {(i, n): v for i, e in a.items() for n, v in e.items()}
+                b = {(i, n): v for i, e in b.items() for n, v in e.items()}
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in a), (kind, tag)

@@ -42,13 +42,17 @@ def test_port_sources_exist():
                 ("assets", "ade20k.py"), ("utils", "ade.py"), ("ops", "library.py"),
                 ("cli", "export.py"), ("models", "backbones.py"),
                 ("models", "legacy_decoders.py"), ("models", "seg_hrnet.py"),
-                ("models", "bucketed.py")):
+                ("models", "bucketed.py"), ("core", "deformed_sampler.py"), ("core", "gaze.py"),
+                ("native", "distance.py"), ("native", "kdtree.py"), ("native", "rotation.py"),
+                ("native", "voronoi.py"), ("utils", "observe.py"), ("utils", "torch_tools.py"),
+                ("utils", "dynamicfocus.py"), ("utils", "misc.py"), ("utils", "plot.py")):
         assert os.path.join("fovealseg_torch", *mod) in names
     for src in ("jfa.cu", "gather.cu"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
     for cfg in ("deform.yaml", "ade20k.yaml"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "configs", cfg))
-    assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "native", "spatial.cpp"))
+    for src in ("spatial.cpp", "distance.cpp", "kdtree.cpp"):
+        assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "native", src))
     assert len(names) > 60
 
 
