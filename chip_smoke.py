@@ -153,6 +153,22 @@ Phases (any failure exits non-zero):
         inputs, the output bit-equal to the host's plain recompute; CUDA
         events and device ms), ``interp2d_apply``'s gradient within 1e-5 of
         the host's, ``device_memory_stats()``;
+     k. W8A8 serving (``TPU.quantize int8``, ``ops/quant.py``): K6, K7 and K8
+        bit-equal to their plain versions and timed (events, back to back,
+        device ms, bound, plain; K6 beside ``torch.linalg.vector_norm(x,
+        inf)``, K7 beside ``torch.quantize_per_tensor`` (f32), K8 beside
+        ``torch._int_mm`` of the unfolded codes and cuDNN's bf16 conv; the
+        one-call ``w8a8_conv2d`` that serving runs beside the three calls)
+        at HRNet's 3x3 convs of 128, 256 and 512 channels and C1's 960 ->
+        240 (bf16 and f32) at b8; the serving CLI at
+        b8 bf16 with ``TPU.quantize int8``, then ``infer(argmax_labels=True)``
+        at b8 and b1 in f32 and bf16 on the quantized flagship, K6, K7 and
+        K8 counted once per quantized conv per call and held on each
+        distinct conv shape's own inputs; b8 device busy, idle share and
+        kernels per call beside float serving's; a b2 bf16 served call's 184
+        quantized convs recomputed on the host through the plain versions
+        and its labels through the plain flood, bit-equal; the W8A8 labels'
+        agreement with float serving; one eval-CLI b8 bf16 batch;
   4. summary: the card line, one JSON line of per-kernel numbers, and the
      last line ``{"ok": true, "device": {...}}``.
 """
@@ -190,8 +206,9 @@ def setup():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("card:", card)
     t = time.perf_counter()
-    reports = build.build(["jfa", "gather"])
+    reports = build.build(list(build.SOURCES))
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
+    log(f"profiler clock probe: {json.dumps(profiler_clock_probe())}")
     for name, rep in reports.items():
         for line in rep.strip().splitlines():
             log(f"  ptxas[{name}]: {line}")
@@ -259,16 +276,126 @@ def check_counts(label, counts, expected):
         raise AssertionError(f"{label}: expected launches {expected}, counted {counts}")
 
 
-def hold(name, label, kernel, plain, bound_ms, libraries=None, n=20):
+def _ms(v) -> str:
+    return "not read" if v is None else f"{v:.4f} ms"
+
+
+# every profiled read that saw no kernel, with its diagnosis
+DROPPED_READS: list = []
+
+
+def _launch_lag_ms(prof):
+    """Launch and kernel records of a CPU + CUDA profiled run, matched by
+    correlation id: ({correlation id: launch record}, [kernel records],
+    [each matched kernel's start minus its launch's start, ms])."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.profiler.kineto_results.events())
+    launches = {e.correlation_id(): e for e in evs
+                if e.device_type() == DeviceType.CPU and "aunch" in e.name()}
+    kernels = [e for e in evs if e.device_type() == DeviceType.CUDA]
+    lag = [(k.start_ns() - launches[k.correlation_id()].start_ns()) / 1e6 for k in kernels
+           if k.correlation_id() in launches]
+    return launches, kernels, lag
+
+
+def profiler_clock_probe(pad_s: float = 0.2) -> dict:
+    """One small kernel under CPU and CUDA activities with ``pad_s`` seconds
+    of host time inside the window on both sides: its kernel's start minus
+    its launch's start (ms), the offset between the profiler's device and
+    host clocks plus the launch latency."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t = torch.ones(1024, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        t.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    launches, kernels, lag = _launch_lag_ms(prof)
+    return {"launch_records": len(launches), "kernel_records": len(kernels),
+            "kernel_start_after_launch_ms": lag}
+
+
+def dropped_read_diagnosis(fn, n: int, pad_s: float = 0.2) -> dict:
+    """Why a profiled run of ``fn`` saw no kernel. The same ``n`` calls (1)
+    under CPU and CUDA activities: the runtime's launch records against the
+    kernels' records, matched by correlation id, and each kernel's start
+    after its launch; (2)-(4) under CUDA activity, as ``device_ms`` runs
+    them but with ``pad_s`` seconds of host time inside the profiled window
+    after the closing synchronise, before the first call, and both: what
+    each reads; (5) ``profiler_clock_probe``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    session_ms = (time.perf_counter() - t0) * 1e3
+    launches, kernels, lag = _launch_lag_ms(prof)
+    start = prof.profiler.kineto_results.trace_start_ns()
+    seen = {k.correlation_id() for k in kernels}
+    missing = [(e.start_ns() - start) / 1e6 for c, e in launches.items() if c not in seen]
+    res = {"launch_records": len(launches), "kernel_records": len(kernels),
+           "kernel_start_after_launch_ms": [min(lag), max(lag)] if lag else None,
+           "missing_launches_ms_after_trace_start": [min(missing), max(missing)]
+           if missing else None, "session_ms": session_ms, "pad_s": pad_s}
+    for variant, before, after in (("pad_after", 0.0, pad_s), ("pad_before", pad_s, 0.0),
+                                   ("pad_both", pad_s, pad_s)):
+        with profile(activities=[ProfilerActivity.CUDA]) as padded:
+            time.sleep(before)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(after)
+        pk = [e for e in padded.events() if e.device_type == DeviceType.CUDA]
+        res[f"{variant}_kernels_per_call"] = len(pk) / n
+        res[f"{variant}_device_ms"] = sum(e.time_range.elapsed_us() for e in pk) / 1e3 / n
+    res["clock_probe"] = profiler_clock_probe(pad_s)
+    return res
+
+
+def profiled_ms(label, fn, n: int, tries: int = 3):
+    """Device ms per call of ``fn`` under torch.profiler (``device_ms``), or
+    None where no run saw a kernel: a run that launched kernels and holds no
+    kernel record is not a time. From phase 3g on, the profiler holds no
+    kernel record in about every other short run of this process, so such a
+    run is diagnosed once (``dropped_read_diagnosis``, kept in
+    ``DROPPED_READS``) and read again, up to ``tries`` runs in all."""
+    from fovealseg_torch.tools.profile_gather import device_ms
+
+    for attempt in range(tries):
+        ms, per_call, _ = device_ms(fn, n)
+        if per_call > 0:
+            if attempt:
+                DROPPED_READS[-1]["read_on_run"] = attempt + 1
+            return ms
+        if attempt == 0:
+            diag = dropped_read_diagnosis(fn, n)
+            DROPPED_READS.append({"label": label, **diag})
+            log(f"profiler read no kernel for {label}: {json.dumps(diag)}")
+    log(f"profiler read no kernel for {label} in {tries} runs")
+    return None
+
+
+def hold(name, label, kernel, plain, bound_ms, libraries=None, n=20, bound_by="bytes"):
     """Run ``kernel`` and ``plain`` once, require bit-equal outputs, then
     time both: the kernel in CUDA events around one call on an idle stream
     (``ms``), over back-to-back calls (``loop_ms``) and as the sum of its
-    kernels' device times under torch.profiler (``device_ms``); each of
+    kernels' device times under torch.profiler (``device_ms``, None where
+    the profiler saw no kernel: ``profiled_ms``); each of
     ``libraries`` ({name: fn}, the first one is ``library``) in events and
     device time. Returns the numbers."""
     import torch
 
-    from fovealseg_torch.tools.profile_gather import device_ms, events_ms, loop_ms
+    from fovealseg_torch.tools.profile_gather import events_ms, loop_ms
 
     k_out = kernel()
     torch.cuda.synchronize()
@@ -284,17 +411,17 @@ def hold(name, label, kernel, plain, bound_ms, libraries=None, n=20):
     del k_out, ref
     err = 0.0  # bit-equal, so every element's difference is 0
     ms = events_ms(kernel, n)
-    dev_ms = device_ms(kernel, n)[0]
+    dev_ms = profiled_ms(f"{name} [{label}]", kernel, n)
     lp_ms = loop_ms(kernel, n)
     plain_ms = events_ms(plain, n, warmup=1)
-    libs = {lib: {"ms": events_ms(fn, n), "device_ms": device_ms(fn, n)[0]}
+    libs = {lib: {"ms": events_ms(fn, n), "device_ms": profiled_ms(f"{lib} [{label}]", fn, n)}
             for lib, fn in (libraries or {}).items()}
     library_ms = next(iter(libs.values()))["ms"] if libs else None
     log(f"{name} [{label}]: bit-equal; kernel {ms:.4f} ms events, {lp_ms:.4f} ms back to back, "
-        f"{dev_ms:.4f} ms device; plain {plain_ms:.4f} ms; "
-        + "".join(f"{lib} {v['ms']:.4f} ms events, {v['device_ms']:.4f} ms device; "
+        f"{_ms(dev_ms)} device; plain {plain_ms:.4f} ms; "
+        + "".join(f"{lib} {v['ms']:.4f} ms events, {_ms(v['device_ms'])} device; "
                   for lib, v in libs.items())
-        + f"bound {bound_ms:.4f} ms (bytes)")
+        + f"bound {bound_ms:.4f} ms ({bound_by})")
     return dict(ms=ms, device_ms=dev_ms, loop_ms=lp_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 library_ms=library_ms, libraries=libs, max_abs_err=err, bit_equal=True)
 
@@ -3526,6 +3653,340 @@ def host_remainder_path(card, device) -> tuple[dict, dict]:
     return res, {"deformed_sampler": counts}
 
 
+# --------------------------------------------------------------- phase 3k
+
+W8A8_OPTS = ["TPU.quantize", "int8"]
+# the K8 shapes timed (the flagship's b8 call): (label, cin, hw, cout, k, stride, padding,
+# dtype); the last is the kernels line's row (C1's cbr input, the path's largest conv, in
+# f32, the dtype PyTorch's quantize_per_tensor takes)
+W8A8_TIMED = (("hrnet 3x3 128 @ 40x40", 128, 40, 128, 3, 1, 1, "bfloat16"),
+              ("hrnet 3x3 256 @ 20x20", 256, 20, 256, 3, 1, 1, "bfloat16"),
+              ("hrnet 3x3 512 @ 10x10", 512, 10, 512, 3, 1, 1, "bfloat16"),
+              ("c1 cbr 3x3 960->240 @ 80x80", 960, 80, 240, 3, 1, 1, "bfloat16"),
+              ("c1 cbr 3x3 960->240 @ 80x80 f32", 960, 80, 240, 3, 1, 1, "float32"))
+INT8_TOPS = 1979e12  # H100 SXM dense int8, data sheet
+
+
+def quant_counters():
+    from fovealseg_torch.ops import quant
+
+    return {"absmax_scale": quant.absmax_scale, "quantize_act": quant.quantize_act,
+            "int8_conv2d": quant.int8_conv2d}
+
+
+def reset_quant_counts():
+    for fn in quant_counters().values():
+        fn.launches = 0
+
+
+def read_quant_counts():
+    import torch
+
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in quant_counters().items()}
+
+
+@contextlib.contextmanager
+def w8a8_inputs(models, keep_all: bool = False):
+    """The inputs of each quantized conv's call (``Conv2d`` holding
+    ``weight_q``, which calls ``ops/quant.py::w8a8_conv2d``) in ``models``,
+    recorded by forward hooks: one per distinct shape, or every call
+    (``keep_all``) with its output."""
+    import torch
+
+    seen = {}
+
+    def record(m, args, out):
+        x = args[0].to(m.compute_dtype)
+        bias = m._cast_param("bias", m.bias)
+        key = (tuple(x.shape), x.dtype, tuple(m.weight_q.shape), m.stride[0], m.padding[0],
+               bias is not None)
+        if keep_all or key not in seen:
+            conv = (x.detach().clone(memory_format=torch.contiguous_format), m.weight_q,
+                    m.w_scale, bias, m.stride[0], m.padding[0])
+            seen[len(seen) if keep_all else key] = (conv, out.clone()) if keep_all else conv
+
+    hooks = [m.register_forward_hook(record) for model in models for m in model.modules()
+             if "weight_q" in m._buffers]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def hold_w8a8(label, args) -> None:
+    """K6, K7 and K8 on one conv's inputs against their plain versions, on
+    the card, and the path's one-call W8A8 conv against them: bit-equal (int
+    views). Not counted as the path's launches."""
+    import torch
+
+    from fovealseg_torch.ops import quant
+
+    x, weight_q, w_scale, bias, stride, padding = args
+    s_k, s_p = quant.absmax_scale(x), quant.absmax_scale_plain(x)
+    q_k, q_p = quant.quantize_act(x, s_k), quant.quantize_act_plain(x, s_p)
+    y_k = quant.int8_conv2d(q_k, weight_q, s_k, w_scale, bias, stride, padding, x.dtype)
+    y_p = quant.int8_conv2d_plain(q_p, weight_q, s_p, w_scale, bias, stride, padding, x.dtype)
+    y_f = quant.w8a8_conv2d(x, weight_q, w_scale, bias, stride, padding)
+    torch.cuda.synchronize()
+    bits = torch.int16 if y_k.element_size() == 2 else torch.int32
+    if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32)) and torch.equal(q_k, q_p)
+            and torch.equal(y_k.view(bits), y_p.view(bits))
+            and torch.equal(y_f.view(bits), y_p.view(bits))):
+        raise AssertionError(f"K6/K7/K8 != plain on {label}")
+
+
+def w8a8_bounds(x, weight_q, stride, padding) -> dict:
+    """The least times of K6, K7 and K8 at one conv (bytes over 3.35 TB/s;
+    K8 the larger of that and 2*M*N*K over 1,979 TOPS)."""
+    b, c, h, w = x.shape
+    n, k = weight_q.shape[:2]
+    ho, wo = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+    act, codes, out = x.numel() * x.element_size(), x.numel(), b * n * ho * wo * x.element_size()
+    ops = 2 * b * ho * wo * n * k * k * c
+    k8_bytes = codes + weight_q.numel() + out + 4 * n + 4
+    return {"absmax_scale": (act + 4) / HBM_BYTES_PER_S * 1e3,
+            "quantize_act": (act + codes + 4) / HBM_BYTES_PER_S * 1e3,
+            "int8_conv2d": max(k8_bytes / HBM_BYTES_PER_S, ops / INT8_TOPS) * 1e3,
+            "int8_conv2d_by": "operations" if ops / INT8_TOPS > k8_bytes / HBM_BYTES_PER_S
+            else "bytes", "gop": ops / 1e9}
+
+
+def time_w8a8_shape(card, device, label, cin, hw, cout, k, stride, padding, dtype) -> dict:
+    """K6, K7 and K8 at one shape of the flagship's b8 call (random
+    activations and weights from a seed), held bit-equal and timed by
+    ``hold`` beside yardsticks the port never calls: for K6
+    ``torch.linalg.vector_norm(x, inf)`` (max |x|); for K7
+    ``torch.quantize_per_tensor`` of a channels_last x (the NHWC codes; f32
+    only, PyTorch quantizes no bf16 tensor); for K8 ``torch._int_mm`` of the
+    codes' ``F.unfold`` (the product alone, the ``library`` time, and with
+    the unfold) and cuDNN's bf16 conv of the same shape. Also the path's
+    one-call W8A8 conv (K6 -> K7 -> K8) in events beside the three calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from fovealseg_torch.models.layers import quantize_kernel
+    from fovealseg_torch.ops import quant
+    from fovealseg_torch.tools.profile_gather import events_ms
+
+    g = torch.Generator().manual_seed(cin + hw)
+    x = torch.relu(torch.randn(8, cin, hw, hw, generator=g)).to(getattr(torch, dtype)).to(device)
+    wt = torch.randn(cout, cin, k, k, generator=g) * (2.0 / (cin * k * k)) ** 0.5
+    codes, w_scale = quantize_kernel(wt.to(device))
+    weight_q = codes.permute(0, 2, 3, 1).contiguous()
+    s_x = quant.absmax_scale(x)
+    xq = quant.quantize_act(x, s_x)
+    bounds = w8a8_bounds(x, weight_q, stride, padding)
+    k7_libraries = {}
+    if x.dtype == torch.float32:
+        x_cl, s_host = x.contiguous(memory_format=torch.channels_last), s_x.item()
+        k7_libraries["torch.quantize_per_tensor"] = lambda: torch.quantize_per_tensor(
+            x_cl, s_host, 0, torch.qint8)
+    else:
+        log(f"W8A8 {label}: no K7 yardstick: torch.quantize_per_tensor takes only float32")
+    res = {"absmax_scale": hold("absmax_scale", label, lambda: quant.absmax_scale(x),
+                                lambda: quant.absmax_scale_plain(x), bounds["absmax_scale"],
+                                {"torch.linalg.vector_norm(inf)": lambda: torch.linalg.vector_norm(
+                                    x, ord=math.inf)}, n=10),
+           "quantize_act": hold("quantize_act", label, lambda: quant.quantize_act(x, s_x),
+                                lambda: quant.quantize_act_plain(x, s_x), bounds["quantize_act"],
+                                k7_libraries, n=10)}
+    ho = (hw + 2 * padding - k) // stride + 1
+    x_nchw = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    cols = F.unfold(x_nchw, k, padding=padding, stride=stride).to(torch.int8)
+    a = cols.transpose(1, 2).reshape(8 * ho * ho, cin * k * k).contiguous()
+    bmat = codes.reshape(cout, -1).t().contiguous()
+    xb, wb = x.to(torch.bfloat16), wt.to(device, torch.bfloat16)
+
+    def unfold_int_mm():
+        c = F.unfold(x_nchw, k, padding=padding, stride=stride).to(torch.int8)
+        return torch._int_mm(c.transpose(1, 2).reshape(8 * ho * ho, -1), bmat)
+
+    libraries = {"torch._int_mm": lambda: torch._int_mm(a, bmat),
+                 "F.unfold + torch._int_mm": unfold_int_mm,
+                 "cudnn bf16 conv": lambda: F.conv2d(xb, wb, stride=stride, padding=padding)}
+    for name, fn in list(libraries.items()):
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:  # a yardstick the installed PyTorch does not run
+            log(f"W8A8 {label}: yardstick {name} not run: {e}")
+            del libraries[name]
+    res["int8_conv2d"] = hold(
+        "int8_conv2d", label,
+        lambda: quant.int8_conv2d(xq, weight_q, s_x, w_scale, None, stride, padding, x.dtype),
+        lambda: quant.int8_conv2d_plain(xq, weight_q, s_x, w_scale, None, stride, padding,
+                                        x.dtype),
+        bounds["int8_conv2d"], libraries, n=10, bound_by=bounds["int8_conv2d_by"])
+    res["int8_conv2d"].update(bound_by=bounds["int8_conv2d_by"], gop=bounds["gop"],
+                              tops=bounds["gop"] / res["int8_conv2d"]["loop_ms"])
+
+    def three_calls():
+        s = quant.absmax_scale(x)
+        return quant.int8_conv2d(quant.quantize_act(x, s), weight_q, s, w_scale, None, stride,
+                                 padding, x.dtype)
+
+    one_call = events_ms(lambda: quant.w8a8_conv2d(x, weight_q, w_scale, None, stride, padding),
+                         10)
+    three = events_ms(three_calls, 10)
+    res["int8_conv2d"].update(w8a8_conv2d_ms=one_call, three_calls_ms=three)
+    log(f"W8A8 {label}: K8 {res['int8_conv2d']['ms']:.4f} ms events, "
+        f"{res['int8_conv2d']['loop_ms']:.4f} back to back ({res['int8_conv2d']['tops']:.1f} "
+        f"TOPS of 1,979), bound {bounds['int8_conv2d']:.4f} ms ({bounds['int8_conv2d_by']}); "
+        f"K6 -> K7 -> K8 in one call {one_call:.4f} ms events, in three calls {three:.4f} ms; "
+        f"on {card}")
+    del a, cols
+    return res
+
+
+def w8a8_path(card, device) -> tuple[dict, dict, dict]:
+    """Phase 3k: W8A8 serving (``TPU.quantize int8``) at full flagship width.
+
+    K6, K7 and K8 held bit-equal to their plain versions and timed at the
+    flagship's four main conv shapes (``W8A8_TIMED``, C1's in bf16 and f32),
+    each beside its yardsticks and the path's one-call W8A8 conv (one
+    operator, one host call launching K6, K7 and K8); the serving CLI at b8
+    bf16 with ``TPU.quantize int8`` (2 batches), then ``infer(argmax_labels=
+    True)`` at b8 and b1 in f32 and bf16 on the quantized flagship, the
+    counts zeroed just before and read just after: K6, K7 and K8 once per
+    quantized conv per call; b8 device busy, idle share and kernels per call
+    (torch.profiler) of W8A8 and float serving; on the path's own inputs
+    (recorded by forward hooks) each distinct conv shape held bit-equal; a
+    b2 served bf16 call's every quantized conv recomputed on the host
+    through the plain versions (bit-equal) and its labels
+    recomputed on the host from its logits and grid through the plain flood
+    (bit-equal); the share of b8 labels where W8A8 and float serving agree
+    and their b8 events ms; one eval-CLI b8 bf16 batch with ``TPU.quantize
+    int8``."""
+    import torch
+
+    from fovealseg_torch.cli import eval as eval_cli
+    from fovealseg_torch.cli import infer as cli
+    from fovealseg_torch.core.unwarp import jfa_rounds_from_grid, unwarp_argmax_scatter
+    from fovealseg_torch.models.layers import quantize_model
+    from fovealseg_torch.ops import quant
+    from fovealseg_torch.tools.profile_gather import device_ms, events_ms
+
+    log(f"profiler clock probe: {json.dumps(profiler_clock_probe())}")
+    t_phase = time.perf_counter()
+    numbers = {name: [] for name in quant_counters()}
+    for shape in W8A8_TIMED:
+        for name, r in time_w8a8_shape(card, device, *shape).items():
+            numbers[name].append({"label": shape[0], **r})
+    torch.cuda.empty_cache()
+    log(f"W8A8 kernels timed at {len(W8A8_TIMED)} shapes in {time.perf_counter() - t_phase:.1f} s")
+
+    models = {"float32": flagship(torch.float32, device),
+              "bfloat16": flagship(torch.bfloat16, device)}
+    x8, f8 = frames(8, CANVAS, SEED + 50, device)
+    float_b8 = {dt: events_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 5, warmup=2)
+                for dt, m in models.items()}
+    float_labels = {dt: m.infer(x8, f8, argmax_labels=True)["pred_label"]
+                    for dt, m in models.items()}
+    busy = {("float", dt): device_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 2)[:2]
+            for dt, m in models.items()}
+    convs = {dt: quantize_model(m) for dt, m in models.items()}
+    if len(set(convs.values())) != 1:
+        raise AssertionError(f"quantize_model counts differ between dtypes: {convs}")
+    n_q = convs["float32"]
+
+    reset_quant_counts()
+    reset_counts()
+    t = time.perf_counter()
+    summary = cli.main(["--cfg", "fovealseg_torch/configs/deform.yaml", "--batch", "8",
+                        "--num-batches", "2", "MODEL.gaussian_radius", "45",
+                        "TRAIN.saliency_input_size", "(80,80)", "TRAIN.task_input_size",
+                        "(80,80)", "TPU.compute_dtype", "bfloat16"] + W8A8_OPTS)
+    calls = 2
+    if summary["quantized_convs"] != n_q:
+        raise AssertionError(f"the CLI quantized {summary['quantized_convs']} convs, "
+                             f"quantize_model {n_q}")
+    log(f"W8A8 cli served 2 b8 batches in {time.perf_counter() - t:.1f} s (model build "
+        f"included): {summary['fps']:.2f} fps, {n_q} quantized convs")
+    timings = {}
+    for dt, m in models.items():
+        tm, n = time_infer(m, device, n8=5, n1=10, argmax_labels=True)
+        timings[dt] = {**tm, "float_b8_ms": float_b8[dt]}
+        calls += n
+        log(f"W8A8 serving {dt}: b8 {tm['b8_ms']:.3f} ms/batch = {tm['b8_fps']:.1f} fps "
+            f"(float {float_b8[dt]:.3f} ms); b1 {tm['b1_ms']:.3f} ms (events), "
+            f"{tm['b1_host_ms']:.3f} ms (host clock)")
+    agree = {}
+    with w8a8_inputs(models.values()) as seen:
+        for dt, m in models.items():
+            lab = m.infer(x8, f8, argmax_labels=True)["pred_label"]
+            calls += 1
+            agree[dt] = (lab == float_labels[dt]).float().mean().item()
+    counts = read_quant_counts()
+    check_counts("the W8A8 path (CLI + infer)", counts, dict.fromkeys(counts, calls * n_q))
+    other = read_counts()
+    check_counts("the W8A8 path's jump floods", other,
+                 {**dict.fromkeys(other, 0), "jfa_class": calls})
+    for key, args in seen.items():
+        hold_w8a8(f"W8A8 path conv {key[:3]}", args)
+    log(f"W8A8 path: K6, K7 and K8 bit-equal to their plain versions on {len(seen)} distinct "
+        f"conv shapes' own inputs; b8 label agreement with float serving {json.dumps(agree)}")
+    busy.update({("w8a8", dt): device_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 2)[:2]
+                 for dt, m in models.items()})
+    for (mode, dt), (dev_ms, per_call) in busy.items():
+        wall = timings[dt]["b8_ms" if mode == "w8a8" else "float_b8_ms"]
+        timings[dt][f"{mode}_b8_device_busy_ms"] = dev_ms
+        timings[dt][f"{mode}_b8_kernels_per_call"] = per_call
+        timings[dt][f"{mode}_b8_idle_share"] = 1.0 - dev_ms / wall
+        log(f"{mode} b8 {dt}: device busy {dev_ms:.3f} ms of {wall:.3f} ms (events), idle share "
+            f"{1.0 - dev_ms / wall:.3f}, {per_call:.1f} kernels per call")
+
+    # a b2 served bf16 call: every quantized conv and the labels recomputed on the host
+    log(f"W8A8 path checked at {time.perf_counter() - t_phase:.1f} s into phase 3k")
+    x2, f2 = frames(2, CANVAS, SEED + 51, device)
+    host_convs = 0
+    for dt, m in (("bfloat16", models["bfloat16"]),):
+        with w8a8_inputs([m], keep_all=True) as every:
+            served = m.infer(x2, f2, argmax_labels=True)
+        if len(every) != n_q:
+            raise AssertionError(f"b2 {dt}: {len(every)} W8A8 convs ran, expected {n_q}")
+        for i, (args, out) in every.items():
+            x_h, wq_h, ws_h, b_h, st, pad = (a.cpu() if torch.is_tensor(a) else a for a in args)
+            s_h = quant.absmax_scale_plain(x_h)
+            ref = quant.int8_conv2d_plain(quant.quantize_act_plain(x_h, s_h), wq_h, s_h, ws_h,
+                                          b_h, st, pad, x_h.dtype)
+            bits = torch.int16 if ref.element_size() == 2 else torch.int32
+            if not torch.equal(out.cpu().view(bits), ref.view(bits)):
+                raise AssertionError(f"b2 {dt}: W8A8 conv {i} on the card != the host's plain "
+                                     f"recompute")
+        host_convs += len(every)
+        grid = served["grid"]
+        rounds = jfa_rounds_from_grid(grid, (CANVAS, CANVAS)).cpu()
+        host = unwarp_argmax_scatter(served["pred"].cpu(), grid.cpu(), (CANVAS, CANVAS),
+                                     rounds=rounds)
+        if not torch.equal(host, served["pred_label"].cpu()):
+            raise AssertionError(f"b2 {dt}: served W8A8 labels != the host recompute")
+        label = served["pred_label"]
+        if label.shape != (2, CANVAS, CANVAS) or int(label.min()) < 0 or int(label.max()) >= 51:
+            raise AssertionError(f"b2 {dt}: pred_label malformed")
+    log(f"W8A8 b2 served bf16 call: all {host_convs} quantized convs bit-equal to the host's "
+        f"plain recompute, labels bit-equal to the host's plain flood "
+        f"({time.perf_counter() - t_phase:.1f} s into phase 3k)")
+    del models, seen
+    torch.cuda.empty_cache()
+
+    reset_quant_counts()
+    result = eval_cli.main(EVAL_FLAGS + ["--num-batches", "1"] + EVAL_OPTS
+                           + ["VAL.batch_size", "8", "VAL.y_sampled_reverse", "True"] + W8A8_OPTS)
+    eval_counts = read_quant_counts()
+    check_counts("the W8A8 eval CLI (1 b8 batch)", eval_counts, dict.fromkeys(eval_counts, n_q))
+    check_result("W8A8 eval b8", result, 1)
+    result = {k: v for k, v in result.items() if k != "per_class_iou"}
+    log(f"W8A8 eval b8 bf16: {json.dumps(result)}")
+
+    res = {"quantized_convs": n_q, "serving": timings, "cli_fps": summary["fps"],
+           "label_agreement_with_float": agree, "eval": result,
+           "phase_3k_s": time.perf_counter() - t_phase}
+    log(f"phase 3k took {res['phase_3k_s']:.1f} s on {card}")
+    return numbers, {"w8a8": counts, "w8a8_eval": eval_counts}, res
+
+
 def main() -> int:
     import torch
 
@@ -3586,6 +4047,8 @@ def main() -> int:
     log("== phase 3j: the host-only remainder on the card (the DynamicFocus sampler, "
         "interp2d_apply's gradient, device_memory_stats)")
     remainder, remainder_counts = host_remainder_path(card, device)
+    log("== phase 3k: W8A8 int8 serving (TPU.quantize int8: K6, K7, K8)")
+    w8a8_numbers, w8a8_counts, w8a8 = w8a8_path(card, device)
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("== phase 4: summary")
@@ -3640,11 +4103,32 @@ def main() -> int:
                                                        "index_put_deterministic_repeats")
                                      if k in c}
                                     for c in n["cases"]]
+    for name in quant_counters():
+        cases = w8a8_numbers[name]
+        n = cases[-1]  # C1's cbr input in f32, the path's largest conv
+        by_path = {path: c[name] for path, c in w8a8_counts.items()}
+        if sum(by_path.values()) == 0:
+            raise AssertionError(f"{name} was launched no time on the W8A8 path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "fovealseg_torch/csrc/quant.cu",
+            # no TPU kernel: XLA's int8 conv in TorchConv's W8A8 branch
+            "replaces": "fovealseg_tpu/models/layers.py:202",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": n["max_abs_err"], "bit_equal": n["bit_equal"], "ms": n["ms"],
+            "kernel_ms": n["ms"], "device_ms": n["device_ms"], "loop_ms": n["loop_ms"],
+            "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": n.get("bound_by", "bytes"), "library_ms": n["library_ms"],
+            "libraries": n["libraries"],
+            "cases": [{k: c[k] for k in ("label", "ms", "device_ms", "loop_ms", "plain_ms",
+                                         "bound_ms", "library_ms", "libraries", "tops")
+                       if k in c} for c in cases],
+        })
     log(json.dumps({"serving": serving, "scoremap": scoremap, "eval": evaluation, **training,
                     "encoders": encoders, "parallel": parallel, "real_data": real_data,
                     "mesh_and_spatial": mesh_spatial, "export_and_zoo": export_zoo,
-                    "host_remainder": remainder,
-                    "small_input_label_agreement": small_label_agreement, **checks}))
+                    "host_remainder": remainder, "w8a8": w8a8,
+                    "small_input_label_agreement": small_label_agreement,
+                    "dropped_profiler_reads": DROPPED_READS, **checks}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,12 @@ discards one batch, so that both evaluate the same frames. ``--data <cook
 root>`` evaluates the first ``--num-batches`` batches of the cooked LVIS
 ``valid`` partition (``DATASET.dataset_marker_valid``, images from
 ``--image-root``) in order, as the JAX CLI does.
+
+``TPU.quantize int8`` evaluates W8A8 serving, as the JAX CLI does: the
+weights are quantized once after they load
+(``models/layers.py::quantize_model``; on the card the convs run K6, K7 and
+K8 of ``ops/quant.py``). ``TPU.conv_pack`` is a TPU layout of the same
+convolution and changes nothing here.
 """
 
 from __future__ import annotations
@@ -155,10 +161,9 @@ def refuse_unported(cfg) -> None:
             "VAL.ensemble / VAL.approx_pred_Fxlr_by_ensemble are not implemented (an "
             "untested fixed-patch ensemble baseline of the reference, refused by the JAX CLI "
             "too); unset them")
-    if cfg.TPU.quantize or cfg.TPU.conv_pack:
-        raise NotImplementedError(
-            "TPU.quantize and TPU.conv_pack are tuned to the TPU's matrix unit and are not "
-            "ported (ROADMAP, 'Not to port'); unset them")
+    from fovealseg_torch.cli.infer import quantize_option
+
+    quantize_option(cfg)  # "" or "int8", else raise
 
 
 def load_weights(module, cfg, torch_ckpt, torch_epoch, log, kinds=None,
@@ -317,6 +322,10 @@ def main(argv=None, timing: dict | None = None, on_batch=None):
     dtype = torch.bfloat16 if cfg.TPU.compute_dtype == "bfloat16" else torch.float32
     module = DeformSegmentation(DeformConfig.from_cfg(cfg), dtype=dtype, device=device)
     load_weights(module, cfg, args.torch_ckpt, args.torch_epoch, log)
+    if cfg.TPU.quantize:
+        from fovealseg_torch.models.layers import quantize_model
+
+        log.info("TPU.quantize int8: %d convs serve W8A8", quantize_model(module))
     bg = cfg.DATASET.num_class - 1
 
     rev_y = bool(cfg.VAL.y_sampled_reverse)

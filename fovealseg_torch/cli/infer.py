@@ -27,10 +27,22 @@ rank 0 writes the masks and prints the summary, with the trunk's exchanges.
 ``--spatial`` with ``--mesh`` exits before any rank starts, as in the JAX
 CLI.
 
+``TPU.quantize int8`` serves W8A8, as the JAX CLI does: the weights of the
+convs the JAX package builds as ``TorchConv`` with at least 128 input and
+output channels are quantized once after they load
+(``models/layers.py::quantize_model``), and each such conv quantizes its
+input per call with one scale for the whole micro-batch, so the labels
+depend on how ``--microbatch`` splits a batch. On the card each conv runs
+K6, K7 and K8 (``ops/quant.py``); on the CPU their plain versions.
+``TPU.quantize`` with ``--mesh`` or ``--spatial`` exits before any rank
+starts (the scale would need one max over the ranks per conv).
+``TPU.conv_pack`` is a TPU layout of the same convolution and changes
+nothing here.
+
 Usage:
   python -m fovealseg_torch.cli.infer --cfg fovealseg_torch/configs/deform.yaml \
       [--images DIR --gaze gaze.json | --num-batches N] [--out DIR] [--device cuda] \
-      [--mesh N | --spatial N] [--gpus 0-3] [--backend nccl|gloo]
+      [--mesh N | --spatial N] [--gpus 0-3] [--backend nccl|gloo] [TPU.quantize int8]
   gaze.json: {"<image filename>": [fy, fx], ...} in [0,1]^2 (default center).
 """
 
@@ -176,6 +188,14 @@ def build_model(cfg, device, torch_ckpt=None, torch_epoch="last"):
     return module
 
 
+def quantize_option(cfg) -> bool:
+    """``TPU.quantize`` as the JAX CLIs read it: "" (float serving) or
+    "int8" (W8A8); any other value raises."""
+    if cfg.TPU.quantize not in ("", "int8"):
+        raise ValueError(f"unknown TPU.quantize {cfg.TPU.quantize!r}: \"\" or \"int8\"")
+    return cfg.TPU.quantize == "int8"
+
+
 def _parse(argv):
     parser = argparse.ArgumentParser(description="fovealseg serving on CUDA devices")
     parser.add_argument("--cfg", required=True)
@@ -224,6 +244,9 @@ def _parse(argv):
             raise SystemExit(f"the micro-batch ({micro}) must be divisible by --mesh")
     if args.spatial > 1 and args.mesh:
         raise SystemExit("--spatial and --mesh are exclusive")
+    if quantize_option(cfg) and (args.mesh or args.spatial > 1):
+        raise SystemExit("TPU.quantize int8 serves in one process: its activation scale spans "
+                         "the micro-batch, which --mesh and --spatial split over ranks")
     return args, cfg, micro
 
 
@@ -255,12 +278,14 @@ def _rank_main(rank, argv):
 
 def _serve(argv, rank):
     from fovealseg_torch import resolve_device
-    from fovealseg_torch.models.layers import set_batch_stats_group
-    from fovealseg_torch.ops import gather, jfa
+    from fovealseg_torch.models.layers import quantize_model, set_batch_stats_group
+    from fovealseg_torch.ops import gather, jfa, quant
     from fovealseg_torch.parallel import spatial
 
     args, cfg, micro = _parse(argv)
-    kernels = {"jfa_class": jfa.nearest_class, "row_gather": gather.row_gather}
+    kernels = {"jfa_class": jfa.nearest_class, "row_gather": gather.row_gather,
+               "absmax_scale": quant.absmax_scale, "quantize_act": quant.quantize_act,
+               "int8_conv2d": quant.int8_conv2d}
     before = {name: fn.launches for name, fn in kernels.items()}
     exchanges = spatial.exchanges
     if rank is None:
@@ -270,6 +295,7 @@ def _serve(argv, rank):
 
         device, group, main_rank = rank.device, dist.group.WORLD, rank.rank == 0
     module = build_model(cfg, device, args.torch_ckpt, args.torch_epoch)
+    quantized = quantize_model(module) if quantize_option(cfg) else 0
     if group is not None and args.spatial > 1:
         module.set_spatial(group)
         group = None  # every rank serves the whole batch
@@ -299,6 +325,8 @@ def _serve(argv, rank):
         "spatial": args.spatial,
         "task": list(module.config.task_hw_infer),
         "dtype": str(module.dtype).replace("torch.", ""),
+        "quantize": cfg.TPU.quantize,
+        "quantized_convs": quantized,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "note": "wall clock after the first batch, host IO included",
     }

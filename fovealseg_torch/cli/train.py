@@ -64,8 +64,8 @@ def refuse_unported(cfg) -> None:
     """Raise for every option this CLI does not run."""
     if cfg.TPU.quantize or cfg.TPU.conv_pack:
         raise NotImplementedError(
-            "TPU.quantize and TPU.conv_pack are tuned to the TPU's matrix unit and are not "
-            "ported (ROADMAP, 'Not to port'); unset them")
+            "TPU.quantize and TPU.conv_pack are serving options (cli.infer, cli.eval); "
+            "training does not run them; unset them")
 
 
 def mesh_2d(cfg) -> tuple[int, int] | None:

@@ -143,14 +143,14 @@ def unwarp_prediction_fast(pred: torch.Tensor, task_idx: torch.Tensor, valid: to
 
     ``gather_impl`` ('xla' or 'windowed', ``TPU.scoremap_gather``) picks the
     TPU gather; both are K5 here. ``gather_bf16``
-    (``TPU.scoremap_gather_bf16``) is not ported.
+    (``TPU.scoremap_gather_bf16``) rounds the half-pixel-averaged rows to
+    bf16 before the gather with 'xla', as the JAX package does; K5 then
+    gathers them as f32 rows, whose values are exact in bf16, so the result
+    is the JAX package's. With 'windowed' it is ignored, as on the JAX
+    package's Pallas path.
 
     pred: [B, th, tw, C]; task_idx/valid from ``core.grid.inverse_grid_index``.
     Returns [B, Hs, Ws, C] of pred's dtype."""
-    if gather_bf16:
-        raise NotImplementedError(
-            "TPU.scoremap_gather_bf16 is a TPU gather trade-off and is not ported "
-            "(ROADMAP 'Not to port')")
     if gather_impl not in ("xla", "windowed"):
         raise ValueError(f"Unknown TPU.scoremap_gather: {gather_impl!r}")
     b, th, tw, c = pred.shape
@@ -158,6 +158,8 @@ def unwarp_prediction_fast(pred: torch.Tensor, task_idx: torch.Tensor, valid: to
     tidx = _nearest_payload(valid, task_idx, num_iters, rounds,
                             pay_bits=(th * tw - 1).bit_length())
     p2 = halfpixel_avg(pred.float()).reshape(b, th * tw, c)
+    if gather_bf16 and gather_impl == "xla":
+        p2 = p2.to(torch.bfloat16).float()
     out = _gather_rows_flat(p2, tidx.reshape(b, hs * ws))
     return out.reshape(b, hs, ws, c).to(pred.dtype)
 

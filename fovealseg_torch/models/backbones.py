@@ -28,8 +28,10 @@ from fovealseg_torch.models.layers import batch_norm, conv2d, relu6
 
 
 def _conv3x3(cin: int, cout: int, stride: int, dilation: int, dtype, groups: int = 1):
+    # a plain nn.Conv in the JAX package (its _dilated_conv3x3, Bottleneck conv2 and
+    # MobileNetV2's depthwise conv): TPU.quantize leaves it alone
     return conv2d(cin, cout, 3, stride, dilation, use_bias=False, dtype=dtype,
-                  dilation=dilation, groups=groups)
+                  dilation=dilation, groups=groups, quantizable=False)
 
 
 def _downsample(cin: int, cout: int, stride: int, dtype) -> nn.Sequential:

@@ -43,7 +43,7 @@ class TVBottleneck(nn.Module):
         self.conv1 = conv2d(inplanes, planes, 1, 1, 0, use_bias=False, dtype=dtype)
         self.bn1 = batch_norm(planes, dtype)
         self.conv2 = conv2d(planes, planes, 3, stride, dilation, use_bias=False, dtype=dtype,
-                            dilation=dilation)
+                            dilation=dilation, quantizable=False)  # a JAX nn.Conv
         self.bn2 = batch_norm(planes, dtype)
         self.conv3 = conv2d(planes, planes * 4, 1, 1, 0, use_bias=False, dtype=dtype)
         self.bn3 = batch_norm(planes * 4, dtype)
@@ -66,7 +66,7 @@ class ResNet101OS8(nn.Module):
 
     def __init__(self, dtype=torch.float32, layers=RESNET101_LAYERS):
         super().__init__()
-        self.conv1 = conv2d(3, 64, 7, 2, 3, use_bias=False, dtype=dtype)
+        self.conv1 = conv2d(3, 64, 7, 2, 3, use_bias=False, dtype=dtype, quantizable=False)
         self.bn1 = batch_norm(64, dtype)
         inplanes, dilation = 64, 1
         for li, (planes, blocks, stride, dilate) in enumerate(
@@ -91,8 +91,9 @@ class ResNet101OS8(nn.Module):
 
 
 def _conv_bn_relu(cin: int, cout: int, k: int, rate: int, dtype) -> nn.Sequential:
+    # the atrous 3x3 branches are plain nn.Convs in the JAX package, the 1x1s TorchConvs
     return nn.Sequential(conv2d(cin, cout, k, 1, rate if k == 3 else 0, use_bias=False,
-                                dtype=dtype, dilation=rate),
+                                dtype=dtype, dilation=rate, quantizable=k != 3),
                          batch_norm(cout, dtype), nn.ReLU())
 
 

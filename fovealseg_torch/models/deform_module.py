@@ -23,7 +23,8 @@ backward). The saliency overrides stop the gradient where the JAX module
 does. ``infer`` (argmax labels and full-res score maps in every
 ``rev_deform_interp``, the round trips, the uniform baselines,
 ``VAL.F_Xlr_low_scale > 1``, ``MODEL.gt_gradient``) runs in eval mode
-under ``no_grad``. ``TPU.scoremap_gather_bf16`` raises ``NotImplementedError``.
+under ``no_grad``. ``TPU.scoremap_gather_bf16`` rounds the score map's
+rows to bf16 before the row gather, as the JAX package does.
 
 :meth:`DeformSegmentation.set_spatial` (the counterpart of the JAX module's
 ``spatial_sharding``, ``_shard_rows`` and ``_replicate``): the eval forward
@@ -97,7 +98,7 @@ class DeformConfig:
     f_xlr_low_scale: int = 0
     jfa_iters: int = 0  # 0 = derive the round count from the grid at runtime
     scoremap_gather: str = "xla"  # TPU.scoremap_gather: both values take K5
-    scoremap_gather_bf16: bool = False  # TPU.scoremap_gather_bf16: not ported
+    scoremap_gather_bf16: bool = False  # TPU.scoremap_gather_bf16
     # MODEL.gt_gradient family: with labels, detach the saliency; with
     # fix_gt_gradient replace it by the label-edge sampler
     gt_gradient: bool = False

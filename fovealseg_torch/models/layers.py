@@ -45,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fovealseg_torch.core.interpolate import resize_bilinear_nchw
+from fovealseg_torch.ops.quant import w8a8_conv2d
 
 
 class _CastCache:
@@ -66,18 +67,72 @@ class _CastCache:
 
 
 class Conv2d(_CastCache, nn.Conv2d):
-    """torch ``nn.Conv2d`` (symmetric padding) computing in ``dtype``."""
+    """torch ``nn.Conv2d`` (symmetric padding) computing in ``dtype``.
+
+    ``quantizable`` marks a conv that the JAX package builds as ``TorchConv``
+    (the default); its plain ``nn.Conv`` counterparts (dilated trunks,
+    SegFormer's patch embeds, depthwise convs) are built with
+    ``quantizable=False``, and ``TPU.quantize`` never touches them. A conv
+    on which :func:`quantize_model` has stored the buffers ``weight_q`` and
+    ``w_scale`` runs W8A8 (``ops/quant.py::w8a8_conv2d``)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
                  padding: int = 0, bias: bool = True, dtype: torch.dtype = torch.float32,
-                 dilation: int = 1, groups: int = 1):
+                 dilation: int = 1, groups: int = 1, quantizable: bool = True):
         super().__init__(cin, cout, kernel_size, stride, padding, dilation, groups, bias=bias)
         self.compute_dtype = dtype
+        self.quantizable = quantizable
 
     def forward(self, x):
+        if "weight_q" in self._buffers:
+            return w8a8_conv2d(x.to(self.compute_dtype), self.weight_q, self.w_scale,
+                               self._cast_param("bias", self.bias), self.stride[0],
+                               self.padding[0])
         return self._conv_forward(x.to(self.compute_dtype),
                                   self._cast_param("weight", self.weight),
                                   self._cast_param("bias", self.bias))
+
+
+# W8A8 serving (TPU.quantize="int8"; fovealseg_tpu/models/layers.py:66-98): symmetric
+# int8, zero-point 0; a per-output-channel weight scale, a per-tensor dynamic
+# activation scale (the micro-batch's); int32 sums, then z * (s_x * s_w) in f32, then
+# the bias. Only on convs with at least QUANT_MIN_CH input and output channels.
+QUANT_MIN_CH = 128
+
+
+def quantize_kernel(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes [cout, cin, kh, kw], f32 scale [cout]) of an f32 conv
+    weight [cout, cin, kh, kw]: ``s_w = max(max |W[c]|, 1e-12) / 127`` and
+    ``round_half_even(W / s_w)``, the JAX package's ``quantize_kernel``,
+    computed on the host (PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal) and returned on the weight's device."""
+    w = weight.detach().float().cpu()
+    s_w = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-12) / 127.0
+    codes = torch.round(w / s_w.view(-1, 1, 1, 1)).to(torch.int8)
+    return codes.to(weight.device), s_w.to(weight.device)
+
+
+@torch.no_grad()
+def quantize_model(model: nn.Module) -> int:
+    """Quantize the weight of every conv marked ``quantizable`` (a JAX
+    ``TorchConv``) with at least ``QUANT_MIN_CH`` input and output channels,
+    once (the counterpart of the JAX package's ``quantize_params`` restricted
+    to ``quantized_kernel_paths``): each gets the non-persistent buffers
+    ``weight_q`` (int8 codes, [cout, kh, kw, cin], the layout K8 reads) and
+    ``w_scale`` (f32 [cout]) on its weight's device, and runs W8A8 from then
+    on. Call it after the weights load. Returns the count of convs quantized."""
+    count = 0
+    for m in model.modules():
+        if not (isinstance(m, Conv2d) and m.quantizable and m.in_channels >= QUANT_MIN_CH
+                and m.out_channels >= QUANT_MIN_CH):
+            continue
+        if m.groups != 1 or m.dilation != (1, 1):
+            raise ValueError(f"a quantizable conv must be dense and undilated: {m}")
+        codes, s_w = quantize_kernel(m.weight)
+        m.register_buffer("weight_q", codes.permute(0, 2, 3, 1).contiguous(), persistent=False)
+        m.register_buffer("w_scale", s_w, persistent=False)
+        count += 1
+    return count
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -463,8 +518,9 @@ class Linear(_CastCache, nn.Linear):
 
 def conv2d(cin: int, cout: int, kernel_size: int = 3, stride: int = 1, padding: int = 0,
            use_bias: bool = True, dtype: torch.dtype = torch.float32, dilation: int = 1,
-           groups: int = 1) -> Conv2d:
-    return Conv2d(cin, cout, kernel_size, stride, padding, use_bias, dtype, dilation, groups)
+           groups: int = 1, quantizable: bool = True) -> Conv2d:
+    return Conv2d(cin, cout, kernel_size, stride, padding, use_bias, dtype, dilation, groups,
+                  quantizable)
 
 
 def batch_norm(channels: int, dtype: torch.dtype = torch.float32) -> BatchNorm2d:

@@ -91,7 +91,7 @@ class EfficientSelfAttention(nn.Module):
         sa.key = _dense(hidden, hidden, dtype)
         sa.value = _dense(hidden, hidden, dtype)
         if sr_ratio > 1:
-            sa.sr = conv2d(hidden, hidden, sr_ratio, sr_ratio, 0, dtype=dtype)
+            sa.sr = conv2d(hidden, hidden, sr_ratio, sr_ratio, 0, dtype=dtype, quantizable=False)
             sa.layer_norm = LayerNorm(hidden, dtype=dtype)
         self.add_module("self", sa)
         self.output = nn.Module()
@@ -129,7 +129,7 @@ class MixFFN(nn.Module):
         mid = hidden * ratio
         self.dense1 = _dense(hidden, mid, dtype)
         self.dwconv = nn.Module()
-        self.dwconv.dwconv = conv2d(mid, mid, 3, 1, 1, dtype=dtype, groups=mid)
+        self.dwconv.dwconv = conv2d(mid, mid, 3, 1, 1, dtype=dtype, groups=mid, quantizable=False)
         self.dense2 = _dense(mid, hidden, dtype)
         self.drop1 = Dropout(0.3)
         self.drop2 = Dropout(0.3)
@@ -176,7 +176,7 @@ class SegFormerEncoder(nn.Module):
         for s in range(4):
             ps, st, ch = cfg["patch_sizes"][s], cfg["strides"][s], cfg["hidden_sizes"][s]
             emb = nn.Module()
-            emb.proj = conv2d(cin, ch, ps, st, ps // 2, dtype=dtype)
+            emb.proj = conv2d(cin, ch, ps, st, ps // 2, dtype=dtype, quantizable=False)
             emb.layer_norm = LayerNorm(ch, dtype=dtype)
             enc.patch_embeddings.append(emb)
             enc.block.append(nn.ModuleList(

@@ -1,7 +1,8 @@
 """The port's hand-written kernels as registered operators.
 
 Importing this package registers ``torch.ops.fovealseg.*`` (the four jump
-floods of ``jfa.py`` and the row gather and its backward of ``gather.py``),
+floods of ``jfa.py``, the row gather and its backward of ``gather.py``, and
+the W8A8 conv's three kernels of ``quant.py``),
 which is all that a process needs to load and run a program that
 ``fovealseg_torch.cli.export`` wrote::
 
@@ -10,4 +11,4 @@ which is all that a process needs to load and run a program that
     labels = torch.export.load("model.pt2").module()(images, gaze)
 """
 
-from fovealseg_torch.ops import gather, jfa  # noqa: F401
+from fovealseg_torch.ops import gather, jfa, quant  # noqa: F401

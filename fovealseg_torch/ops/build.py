@@ -18,6 +18,9 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# every source of csrc/: the jump floods (K1-K4), the row gather and its
+# backward (K5, K5b), the W8A8 conv (K6-K8)
+SOURCES = ("jfa", "gather", "quant")
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -848,29 +848,44 @@ def _op_cases_on(dev):
              "nearest_payload": (valid, pay, torch.tensor([5], dtype=torch.int32)),
              "nearest_seed": (valid, torch.tensor([5], dtype=torch.int32)),
              "row_gather": (torch.randn((2, 298, 51), generator=g), idx),
-             "row_gather_backward": (torch.randn((2, 16, 20, 51), generator=g), idx, 298)}
+             "row_gather_backward": (torch.randn((2, 16, 20, 51), generator=g), idx, 298),
+             "w8a8_conv2d": (torch.randn((2, 64, 9, 11), generator=g),
+                             torch.randint(-127, 128, (128, 3, 3, 64), generator=g,
+                                           dtype=torch.int8),
+                             torch.rand(128, generator=g) / 100, torch.randn(128, generator=g),
+                             1, 1),
+             "w8a8_conv2d.bf16": (torch.randn((2, 64, 9, 11), generator=g).bfloat16(),
+                                  torch.randint(-127, 128, (128, 1, 1, 64), generator=g,
+                                                dtype=torch.int8),
+                                  torch.rand(128, generator=g) / 100, None, 2, 0)}
     return {k: tuple(a.to(dev) if torch.is_tensor(a) else a for a in v) for k, v in cases.items()}
 
 
 @pytest.mark.parametrize("name", ["nearest_class", "nearest_payload_packed", "nearest_payload",
-                                  "nearest_seed", "row_gather", "row_gather_backward"])
+                                  "nearest_seed", "row_gather", "row_gather_backward",
+                                  "w8a8_conv2d", "w8a8_conv2d.bf16"])
 def test_opcheck_on_card(dev, name):
     """``torch.library.opcheck`` of each registered operator on CUDA tensors
     (the fake kernel against the CUDA kernel), which launches the kernel and
-    counts it, bit-equal to the CPU kernel on the same inputs."""
+    counts it, bit-equal to the CPU kernel on the same inputs; the W8A8
+    conv's one call launches and counts K6, K7 and K8."""
     import fovealseg_torch.ops  # noqa: F401
-    from fovealseg_torch.ops import gather
+    from fovealseg_torch.ops import gather, quant
 
     args = _op_cases_on(dev)[name]
-    op = getattr(torch.ops.fovealseg, name).default
+    op_name = name.split(".")[0]
+    op = getattr(torch.ops.fovealseg, op_name).default
     torch.library.opcheck(op, args)
-    counter = getattr(jfa, name, None) or getattr(gather, name)
-    before = counter.launches
+    counters = ([quant.absmax_scale, quant.quantize_act, quant.int8_conv2d]
+                if op_name == "w8a8_conv2d" else
+                [getattr(jfa, op_name, None) or getattr(gather, op_name)])
+    before = [c.launches for c in counters]
     got = op(*args)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert [c.launches for c in counters] == [n + 1 for n in before]
     host = op(*(a.cpu() if torch.is_tensor(a) else a for a in args))
-    assert torch.equal(got.cpu().view(torch.int32), host.view(torch.int32))
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    assert torch.equal(got.cpu().view(bits), host.view(bits))
 
 
 @pytest.mark.parametrize("scores", [False, True], ids=["labels", "scores"])
@@ -973,3 +988,90 @@ def test_async_saver_with_card_tensors(dev, tmp_path):
                 b = {(i, n): v for i, e in b.items() for n, v in e.items()}
             assert a.keys() == b.keys()
             assert all(torch.equal(a[k], b[k]) for k in a), (kind, tag)
+
+
+# ---------------------------------------------- W8A8: K6, K7 and K8 (ops/quant.py)
+
+# (batch, cin, h, w, cout, kernel, stride, padding, dtype, bias): the CPU
+# tests' grid (tests/test_torch_port_quantize.py) at the served widths, a
+# ragged M and N with cin % 32 == 16, and C1's stride-4 class head
+W8A8_CASES = [
+    (8, 128, 40, 40, 128, 3, 1, 1, torch.float32, False),
+    (8, 128, 40, 40, 256, 3, 2, 1, torch.bfloat16, True),
+    (8, 256, 20, 20, 256, 1, 1, 0, torch.float32, True),
+    (8, 256, 20, 20, 128, 1, 2, 0, torch.bfloat16, False),
+    (8, 512, 10, 10, 512, 3, 1, 1, torch.float32, False),
+    (8, 960, 80, 80, 240, 3, 1, 1, torch.bfloat16, True),
+    (8, 960, 80, 80, 240, 3, 1, 1, torch.float32, False),
+    (2, 128, 9, 7, 128, 3, 1, 0, torch.bfloat16, False),
+    (2, 128, 9, 7, 128, 1, 1, 1, torch.float32, True),
+    (8, 960, 80, 80, 512, 3, 4, 1, torch.float32, True),
+    (8, 960, 80, 80, 512, 1, 4, 0, torch.bfloat16, True),
+    (3, 144, 7, 9, 130, 3, 2, 1, torch.float32, True),
+]
+
+
+@pytest.mark.parametrize("case", W8A8_CASES,
+                         ids=lambda c: "b{}_{}x{}x{}_to{}_k{}s{}p{}_{}_{}".format(
+                             *c[:8], str(c[8])[6:], "bias" if c[9] else "nobias"))
+def test_w8a8_kernels_bit_equal_to_plain(dev, case):
+    """K6, K7 and K8 against their plain versions (the CPU tests hold the
+    plain versions to the JAX package), K8's output against the host's
+    plain recompute from the host's own codes, and the one-call W8A8 conv
+    (K6 -> K7 -> K8, the serving path's) against the three calls."""
+    from fovealseg_torch.models.layers import quantize_kernel
+    from fovealseg_torch.ops import quant
+
+    b, cin, h, w, cout, k, stride, padding, dt, bias = case
+    g = torch.Generator().manual_seed(cin * h + cout)
+    x = torch.relu(torch.randn(b, cin, h, w, generator=g)).to(dt)
+    codes, w_scale = quantize_kernel(torch.randn(cout, cin, k, k, generator=g) / (cin * k * k))
+    weight_q = codes.permute(0, 2, 3, 1).contiguous()
+    bb = torch.randn(cout, generator=g).to(dt) if bias else None
+    on = [t.to(dev) if t is not None else None for t in (x, weight_q, w_scale, bb)]
+    before = [f.launches for f in (quant.absmax_scale, quant.quantize_act, quant.int8_conv2d)]
+    s_x = quant.absmax_scale(on[0])
+    xq = quant.quantize_act(on[0], s_x)
+    y = quant.int8_conv2d(xq, on[1], s_x, on[2], on[3], stride, padding, dt)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (quant.absmax_scale, quant.quantize_act,
+                                 quant.int8_conv2d)] == [n + 1 for n in before]
+    assert torch.equal(s_x.view(torch.int32), quant.absmax_scale_plain(on[0]).view(torch.int32))
+    assert torch.equal(xq, quant.quantize_act_plain(on[0], s_x))
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    ref = quant.int8_conv2d_plain(xq, on[1], s_x, on[2], on[3], stride, padding, dt)
+    assert torch.equal(y.view(bits), ref.view(bits))
+    s_h = quant.absmax_scale_plain(x)
+    host = quant.int8_conv2d_plain(quant.quantize_act_plain(x, s_h), weight_q, s_h, w_scale, bb,
+                                   stride, padding, dt)
+    assert torch.equal(y.cpu().view(bits), host.view(bits))
+    fused = quant.w8a8_conv2d(on[0], on[1], on[2], on[3], stride, padding)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (quant.absmax_scale, quant.quantize_act,
+                                 quant.int8_conv2d)] == [n + 2 for n in before]
+    assert torch.equal(fused.view(bits), y.view(bits))
+
+
+def test_w8a8_wrappers_refuse_on_card(dev):
+    """A CUDA tensor launches the kernel or raises: no fallback."""
+    from fovealseg_torch.ops import quant
+
+    x = torch.randn(2, 128, 8, 8, device=dev)
+    with pytest.raises(ValueError):
+        quant.absmax_scale(x.transpose(2, 3))  # not contiguous
+    s_x = quant.absmax_scale(x)
+    with pytest.raises(ValueError):
+        quant.quantize_act(x.transpose(2, 3), s_x)
+    xq = quant.quantize_act(x, s_x)
+    wq = torch.zeros(128, 3, 3, 128, dtype=torch.int8, device=dev)
+    ws = torch.ones(128, device=dev)
+    for bad in (dict(stride=3), dict(padding=2), dict(xq=xq[:, :, :, :120].contiguous(),
+                                                      wq=wq[..., :120].contiguous()),
+                dict(wq=wq.cpu())):
+        a = {**dict(xq=xq, wq=wq, stride=1, padding=1), **bad}
+        with pytest.raises(ValueError):
+            quant.int8_conv2d(a["xq"], a["wq"], s_x, ws, None, a["stride"], a["padding"],
+                              torch.float32)
+        xa = x if "xq" not in bad else x[:, :120].contiguous()
+        with pytest.raises(ValueError):
+            quant.w8a8_conv2d(xa, a["wq"], ws, None, a["stride"], a["padding"])

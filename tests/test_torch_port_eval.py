@@ -571,7 +571,6 @@ def test_cli_end_to_end_within_label_agreement(cli_runs):
 
 @pytest.mark.parametrize("opt", [["VAL.ensemble", "True"],
                                  ["VAL.approx_pred_Fxlr_by_ensemble", "True"],
-                                 ["TPU.quantize", "int8"], ["TPU.conv_pack", "True"],
                                  "--data", "resume"])
 def test_cli_refuses(tmp_path, opt):
     from fovealseg_torch.cli import eval as port_cli
@@ -590,6 +589,46 @@ def test_cli_refuses(tmp_path, opt):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP|unset|JAX"):
         port_cli.main(args + TINY_OPTS + ["VAL.batch_size", "1"] + opt)
+
+
+@pytest.mark.parametrize("opt", [["TPU.quantize", "int8"], ["TPU.conv_pack", "True"]])
+def test_cli_runs_tpu_serving_options(opt):
+    """The two serving options of the JAX eval CLI. ``TPU.quantize int8``
+    evaluates W8A8 labels: those that the CLI's weights (``TRAIN.seed``),
+    quantized by ``quantize_model``, serve through ``infer`` on the CLI's
+    frames, through the plain int8 conv on the CPU. ``TPU.conv_pack``, a TPU
+    layout of the same convolution, evaluates the float labels."""
+    from fovealseg_torch.cli import eval as port_cli
+    from fovealseg_torch.cli.infer import build_model
+    from fovealseg_torch.models.layers import quantize_model
+    from fovealseg_torch.ops import quant
+
+    args = (["--cfg", "fovealseg_torch/configs/deform.yaml", "--device", "cpu", "--canvas", "64",
+             "--num-batches", "1"] + TINY_OPTS + ["VAL.batch_size", "2"])
+    preds = {}
+
+    def keep(key):
+        return lambda out, pred, gt, acc: preds.setdefault(key, pred.clone())
+
+    base = port_cli.main(args, on_batch=keep("float"))
+    calls = quant.int8_conv2d.plain_calls
+    got = port_cli.main(args + opt, on_batch=keep("option"))
+    assert set(got) == set(base)
+    if opt[0] == "TPU.conv_pack":
+        assert quant.int8_conv2d.plain_calls == calls
+        assert got == base and torch.equal(preds["option"], preds["float"])
+        return
+    cfg = get_default_cfg()
+    cfg.merge_from_file("fovealseg_torch/configs/deform.yaml")
+    cfg.merge_from_list(TINY_OPTS + ["VAL.batch_size", "2"])
+    model = build_model(cfg, torch.device("cpu"))
+    n = quantize_model(model)
+    assert quant.int8_conv2d.plain_calls - calls == n > 0
+    batch = next(port_cli.synthetic_stream(cfg, 1, 64))
+    ref = model.infer(torch.from_numpy(batch["img_data"]), torch.from_numpy(batch["focus_point"]),
+                      argmax_labels=True)["pred_label"]
+    assert torch.equal(preds["option"], ref)
+    assert 0.95 < (preds["option"] == preds["float"]).float().mean().item()
 
 
 def _cli_on_cooked_lvis(tmp_path, args):

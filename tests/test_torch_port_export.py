@@ -176,7 +176,8 @@ def test_artifact_loads_where_only_the_ops_are_imported(exported, tmp_path):
         "np.save(sys.argv[4], serve(x, f).numpy())\n"
         "mods = sorted(m for m in sys.modules if m.startswith(('fovealseg', 'jax')))\n"
         "assert mods == ['fovealseg_torch', 'fovealseg_torch.ops', 'fovealseg_torch.ops.gather',"
-        " 'fovealseg_torch.ops.jfa', 'fovealseg_torch.ops.library'], mods\n")
+        " 'fovealseg_torch.ops.jfa', 'fovealseg_torch.ops.library', 'fovealseg_torch.ops.quant'],"
+        " mods\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     subprocess.run([sys.executable, "-c", script, str(exported["labels"]["path"]),
                     str(tmp_path / "x.npy"), str(tmp_path / "f.npy"), str(tmp_path / "y.npy")],
@@ -286,7 +287,29 @@ def _op_cases():
             "nearest_payload": (valid, pay, rounds),
             "nearest_seed": (valid, rounds),
             "row_gather": (torch.randn((2, 38, 5), generator=g), idx),
-            "row_gather_backward": (torch.randn((2, 6, 7, 5), generator=g), idx, 38)}
+            "row_gather_backward": (torch.randn((2, 6, 7, 5), generator=g), idx, 38),
+            **_quant_cases(g)}
+
+
+def _quant_cases(g):
+    """The W8A8 conv's operator (``ops/quant.py``) on small inputs: f32 with a
+    bias, 3x3 stride 2; bf16 without, 1x1; f32, 3x3 unpadded. A case
+    ``<op>.<variant>`` runs ``torch.ops.fovealseg.<op>``."""
+    x = torch.randn((2, 16, 5, 7), generator=g)
+    wq = torch.randint(-127, 128, (32, 3, 3, 16), generator=g, dtype=torch.int8)
+    wq1 = torch.randint(-127, 128, (32, 1, 1, 16), generator=g, dtype=torch.int8)
+    ws = torch.rand(32, generator=g) / 100
+    return {"w8a8_conv2d": (x, wq, ws, torch.randn(32, generator=g), 2, 1),
+            "w8a8_conv2d.bf16": (x.bfloat16(), wq1, ws, None, 1, 0),
+            "w8a8_conv2d.unpadded": (x, wq, ws, None, 1, 0)}
+
+
+def _w8a8_plain(x, weight_q, w_scale, bias, stride, padding):
+    from fovealseg_torch.ops import quant
+
+    s_x = quant.absmax_scale_plain(x)
+    return quant.int8_conv2d_plain(quant.quantize_act_plain(x, s_x), weight_q, s_x, w_scale,
+                                   bias, stride, padding, x.dtype)
 
 
 @pytest.mark.parametrize("name", sorted(_op_cases()))
@@ -297,7 +320,7 @@ def test_opcheck_on_the_cpu(name):
     import fovealseg_torch.ops  # noqa: F401
 
     args = _op_cases()[name]
-    op = getattr(torch.ops.fovealseg, name).default
+    op = getattr(torch.ops.fovealseg, name.split(".")[0]).default
     torch.library.opcheck(op, args)
     from fovealseg_torch.ops import gather, jfa
 
@@ -305,5 +328,6 @@ def test_opcheck_on_the_cpu(name):
              "nearest_payload_packed": lambda v, p, r: jfa.nearest_payload_packed_plain(v, p, 6, r),
              "nearest_payload": jfa.nearest_payload_plain, "nearest_seed": jfa.nearest_seed_plain,
              "row_gather": gather.row_gather_plain,
-             "row_gather_backward": gather.row_gather_backward_plain}[name]
+             "row_gather_backward": gather.row_gather_backward_plain,
+             "w8a8_conv2d": _w8a8_plain}[name.split(".")[0]]
     assert torch.equal(op(*args), plain(*args))

@@ -45,9 +45,10 @@ def test_port_sources_exist():
                 ("models", "bucketed.py"), ("core", "deformed_sampler.py"), ("core", "gaze.py"),
                 ("native", "distance.py"), ("native", "kdtree.py"), ("native", "rotation.py"),
                 ("native", "voronoi.py"), ("utils", "observe.py"), ("utils", "torch_tools.py"),
-                ("utils", "dynamicfocus.py"), ("utils", "misc.py"), ("utils", "plot.py")):
+                ("utils", "dynamicfocus.py"), ("utils", "misc.py"), ("utils", "plot.py"),
+                ("ops", "quant.py")):
         assert os.path.join("fovealseg_torch", *mod) in names
-    for src in ("jfa.cu", "gather.cu"):
+    for src in ("jfa.cu", "gather.cu", "quant.cu"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "csrc", src))
     for cfg in ("deform.yaml", "ade20k.yaml"):
         assert os.path.exists(os.path.join(REPO, "fovealseg_torch", "configs", cfg))

@@ -235,11 +235,40 @@ def test_gt_gradient_without_labels_passes_through(both):
     assert (out["pred_label"] == jax_out["pred_label"]).mean() >= 0.995
 
 
-def test_scoremap_gather_bf16_raises():
-    """TPU.scoremap_gather_bf16 stands in ROADMAP's "Not to port" list."""
+def test_scoremap_gather_bf16_matches_jax(weights, both):
+    """``TPU.scoremap_gather_bf16`` rounds the score map's rows to bf16 before
+    the row gather, as the JAX package does: from the JAX ``pred`` and
+    ``grid`` the port's score map is bit-equal to the JAX composition (K2's
+    Pallas kernel in interpret mode, then the flat gather of the rounded
+    rows), and the model with the option serves that map."""
+    from fovealseg_tpu.core import unwarp as junwarp
+    from fovealseg_tpu.core.grid import inverse_grid_index as jax_inverse_grid_index
+    from fovealseg_tpu.ops.pallas_jfa import nearest_payload_packed_pallas
+    from fovealseg_torch.core.grid import inverse_grid_index
+    from fovealseg_torch.core.unwarp import unwarp_prediction_fast
+
+    jax_out = both[0]
+    pred, grid, seg_hw = np.array(jax_out["pred"]), np.array(jax_out["grid"]), (64, 64)
+    task_idx, valid = jax_inverse_grid_index(jnp.asarray(grid), seg_hw)
+    rounds = jax_jfa_rounds(jnp.asarray(grid), seg_hw)
+    tidx = nearest_payload_packed_pallas(valid, task_idx, 8, interpret=True, rounds=rounds)
+    p2 = jax_halfpixel_avg(jnp.asarray(pred)).reshape(2, 256, 51).astype(jnp.bfloat16)
+    ref = np.asarray(junwarp._gather_rows_flat(p2, tidx.reshape(2, -1)).astype(jnp.float32))
+    got = unwarp_prediction_fast(torch.from_numpy(pred), torch.from_numpy(np.array(task_idx)),
+                                 torch.from_numpy(np.array(valid)), None,
+                                 torch.from_numpy(np.array(rounds)), gather_bf16=True)
+    np.testing.assert_array_equal(got.numpy(), ref.reshape(2, 64, 64, 51))
+
+    x, f, _, v = weights
     model = DeformSegmentation(DeformConfig(**TINY, scoremap_gather_bf16=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Not to port"):
-        model.infer(torch.zeros((1, 64, 64, 3)), torch.full((1, 2), 0.5))
+    model.load_state_dict(from_jax_variables(jax.tree.map(np.asarray, v["params"]),
+                                             jax.tree.map(np.asarray, v["batch_stats"])),
+                          strict=True)
+    out = model.infer(torch.from_numpy(x), torch.from_numpy(f))
+    own = unwarp_prediction_fast(out["pred"], *inverse_grid_index(out["grid"], seg_hw), None,
+                                 jfa_rounds_from_grid(out["grid"], seg_hw), gather_bf16=True)
+    assert torch.equal(out["pred_sampled"], own)
+    assert torch.equal(own, own.to(torch.bfloat16).float())  # values exact in bf16
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

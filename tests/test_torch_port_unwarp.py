@@ -345,12 +345,23 @@ def test_unwarp_prediction_fast(scene):
 
 
 def test_unwarp_prediction_fast_options(scene):
+    """``gather_impl='windowed'`` serves the same map; ``gather_bf16``
+    (``TPU.scoremap_gather_bf16``) rounds the rows to bf16 before the gather,
+    bit-equal to the Pallas composition with the JAX package's rounding, and
+    'windowed' ignores it, as the JAX package's Pallas path does."""
     pred = _t(scene["pred"])
     args = _fast_args(scene)
+    exact = unwarp.unwarp_prediction_fast(pred, *args)
     torch.testing.assert_close(unwarp.unwarp_prediction_fast(pred, *args, gather_impl="windowed"),
-                               unwarp.unwarp_prediction_fast(pred, *args), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="Not to port"):
-        unwarp.unwarp_prediction_fast(pred, *args, gather_bf16=True)
+                               exact, rtol=0, atol=0)
+    p2 = junwarp.halfpixel_avg(jnp.asarray(scene["pred"])).reshape(2, 256, 51)
+    ref = _np(junwarp._gather_rows_flat(p2.astype(jnp.bfloat16),
+                                        jnp.asarray(scene["tidx_pallas"]).reshape(2, -1)))
+    got = unwarp.unwarp_prediction_fast(pred, *args, gather_bf16=True)
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.float32).reshape(got.shape))
+    torch.testing.assert_close(unwarp.unwarp_prediction_fast(pred, *args, gather_bf16=True,
+                                                             gather_impl="windowed"),
+                               exact, rtol=0, atol=0)
 
 
 def test_unwarp_argmax_fast(scene):

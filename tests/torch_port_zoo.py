@@ -68,12 +68,15 @@ def variable_shapes(module, *args, **kwargs) -> dict:
     return out
 
 
-def seeded_variables(module, *args, seed: int = 0, **kwargs) -> dict:
+def seeded_variables(module, *args, seed: int = 0, shapes=None, **kwargs) -> dict:
     """``module``'s variables filled from ``np.random.default_rng(seed)``:
     kernels normal with variance 2 / fan_in (1 / fan_in for a Dense), scales
-    1 + N(0, 0.1^2), biases and means N(0, 0.1^2), variances U(0.5, 1.5)."""
+    1 + N(0, 0.1^2), biases and means N(0, 0.1^2), variances U(0.5, 1.5).
+    ``shapes``: the collections' abstract values, where the caller traced
+    ``init`` already (else traced here)."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args, **kwargs)
+    if shapes is None:
+        shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args, **kwargs)
 
     def fill(path, leaf):
         name, shape = path[-1].key, tuple(leaf.shape)
