@@ -165,7 +165,8 @@ Phases (any failure exits non-zero):
         at b8 and b1 in f32 and bf16 on the quantized flagship, K6, K7 and
         K8 counted once per quantized conv per call and held on each
         distinct conv shape's own inputs; b8 device busy, idle share and
-        kernels per call beside float serving's; a b2 bf16 served call's 184
+        kernels per call beside float serving's, and K8's device ms per
+        call (by its kernel's name) and share of W8A8 busy; a b2 bf16 served call's 184
         quantized convs recomputed on the host through the plain versions
         and its labels through the plain flood, bit-equal; the W8A8 labels'
         agreement with float serving; one eval-CLI b8 bf16 batch;
@@ -280,8 +281,10 @@ def _ms(v) -> str:
     return "not read" if v is None else f"{v:.4f} ms"
 
 
-# every profiled read that saw no kernel, with its diagnosis
+# every profiled read that saw no kernel, the first DIAGNOSED_READS with
+# their diagnosis (a few seconds each; the later ones repeat the finding)
 DROPPED_READS: list = []
+DIAGNOSED_READS = 8
 
 
 def _launch_lag_ms(prof):
@@ -367,8 +370,9 @@ def profiled_ms(label, fn, n: int, tries: int = 3):
     None where no run saw a kernel: a run that launched kernels and holds no
     kernel record is not a time. From phase 3g on, the profiler holds no
     kernel record in about every other short run of this process, so such a
-    run is diagnosed once (``dropped_read_diagnosis``, kept in
-    ``DROPPED_READS``) and read again, up to ``tries`` runs in all."""
+    run is kept in ``DROPPED_READS`` (the first ``DIAGNOSED_READS`` of the
+    process diagnosed, ``dropped_read_diagnosis``) and read again, up to
+    ``tries`` runs in all."""
     from fovealseg_torch.tools.profile_gather import device_ms
 
     for attempt in range(tries):
@@ -378,7 +382,8 @@ def profiled_ms(label, fn, n: int, tries: int = 3):
                 DROPPED_READS[-1]["read_on_run"] = attempt + 1
             return ms
         if attempt == 0:
-            diag = dropped_read_diagnosis(fn, n)
+            diagnose = len(DROPPED_READS) < DIAGNOSED_READS
+            diag = dropped_read_diagnosis(fn, n) if diagnose else {}
             DROPPED_READS.append({"label": label, **diag})
             log(f"profiler read no kernel for {label}: {json.dumps(diag)}")
     log(f"profiler read no kernel for {label} in {tries} runs")
@@ -3686,35 +3691,6 @@ def read_quant_counts():
     return {name: fn.launches for name, fn in quant_counters().items()}
 
 
-@contextlib.contextmanager
-def w8a8_inputs(models, keep_all: bool = False):
-    """The inputs of each quantized conv's call (``Conv2d`` holding
-    ``weight_q``, which calls ``ops/quant.py::w8a8_conv2d``) in ``models``,
-    recorded by forward hooks: one per distinct shape, or every call
-    (``keep_all``) with its output."""
-    import torch
-
-    seen = {}
-
-    def record(m, args, out):
-        x = args[0].to(m.compute_dtype)
-        bias = m._cast_param("bias", m.bias)
-        key = (tuple(x.shape), x.dtype, tuple(m.weight_q.shape), m.stride[0], m.padding[0],
-               bias is not None)
-        if keep_all or key not in seen:
-            conv = (x.detach().clone(memory_format=torch.contiguous_format), m.weight_q,
-                    m.w_scale, bias, m.stride[0], m.padding[0])
-            seen[len(seen) if keep_all else key] = (conv, out.clone()) if keep_all else conv
-
-    hooks = [m.register_forward_hook(record) for model in models for m in model.modules()
-             if "weight_q" in m._buffers]
-    try:
-        yield seen
-    finally:
-        for h in hooks:
-            h.remove()
-
-
 def hold_w8a8(label, args) -> None:
     """K6, K7 and K8 on one conv's inputs against their plain versions, on
     the card, and the path's one-call W8A8 conv against them: bit-equal (int
@@ -3867,6 +3843,7 @@ def w8a8_path(card, device) -> tuple[dict, dict, dict]:
     from fovealseg_torch.models.layers import quantize_model
     from fovealseg_torch.ops import quant
     from fovealseg_torch.tools.profile_gather import device_ms, events_ms
+    from fovealseg_torch.tools.profile_quant import w8a8_inputs
 
     log(f"profiler clock probe: {json.dumps(profiler_clock_probe())}")
     t_phase = time.perf_counter()
@@ -3884,7 +3861,7 @@ def w8a8_path(card, device) -> tuple[dict, dict, dict]:
                 for dt, m in models.items()}
     float_labels = {dt: m.infer(x8, f8, argmax_labels=True)["pred_label"]
                     for dt, m in models.items()}
-    busy = {("float", dt): device_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 2)[:2]
+    busy = {("float", dt): device_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 2)
             for dt, m in models.items()}
     convs = {dt: quantize_model(m) for dt, m in models.items()}
     if len(set(convs.values())) != 1:
@@ -3927,15 +3904,21 @@ def w8a8_path(card, device) -> tuple[dict, dict, dict]:
         hold_w8a8(f"W8A8 path conv {key[:3]}", args)
     log(f"W8A8 path: K6, K7 and K8 bit-equal to their plain versions on {len(seen)} distinct "
         f"conv shapes' own inputs; b8 label agreement with float serving {json.dumps(agree)}")
-    busy.update({("w8a8", dt): device_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 2)[:2]
+    busy.update({("w8a8", dt): device_ms(lambda m=m: m.infer(x8, f8, argmax_labels=True), 2)
                  for dt, m in models.items()})
-    for (mode, dt), (dev_ms, per_call) in busy.items():
+    for (mode, dt), (dev_ms, per_call, names) in busy.items():
         wall = timings[dt]["b8_ms" if mode == "w8a8" else "float_b8_ms"]
         timings[dt][f"{mode}_b8_device_busy_ms"] = dev_ms
         timings[dt][f"{mode}_b8_kernels_per_call"] = per_call
         timings[dt][f"{mode}_b8_idle_share"] = 1.0 - dev_ms / wall
         log(f"{mode} b8 {dt}: device busy {dev_ms:.3f} ms of {wall:.3f} ms (events), idle share "
             f"{1.0 - dev_ms / wall:.3f}, {per_call:.1f} kernels per call")
+        if mode == "w8a8":  # K8 by its kernel's name (csrc/quant.cu::int8_conv_wgmma)
+            k8_ms = sum(v for k, v in names.items() if k.startswith("int8_conv"))
+            timings[dt]["w8a8_b8_k8_device_ms"] = k8_ms
+            timings[dt]["w8a8_b8_k8_busy_share"] = k8_ms / dev_ms if dev_ms else None
+            log(f"W8A8 b8 {dt}: K8 {k8_ms:.3f} ms device per call, "
+                f"{k8_ms / dev_ms if dev_ms else float('nan'):.3f} of W8A8 device busy")
 
     # a b2 served bf16 call: every quantized conv and the labels recomputed on the host
     log(f"W8A8 path checked at {time.perf_counter() - t_phase:.1f} s into phase 3k")

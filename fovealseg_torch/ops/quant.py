@@ -153,7 +153,8 @@ def _check_conv(name, b, h, w, c, device, weight_q, w_scale, bias, stride, paddi
     ho, wo = _out_hw(h, w, kh, stride, padding)
     if min(ho, wo) <= 0:
         raise ValueError(f"{name}: a {kh}x{kw} kernel does not fit {h}x{w}")
-    if b * ho * wo >= 2**31 or -(-n // 64) >= 65536:
+    if b * ho * wo >= 2**31 or b * h * w >= 2**31 or max(h, w) >= 2**15 - 1 or \
+            -(-n // 128) >= 65536:
         raise ValueError(f"{name} of {(b, c, h, w)} x {tuple(weight_q.shape)} exceeds the "
                          f"kernel's limits")
     if dtype not in _DTYPES:
@@ -222,6 +223,15 @@ def int8_conv2d(xq: torch.Tensor, weight_q: torch.Tensor, s_x: torch.Tensor,
     return out
 
 
+def int8_conv_plan(m: int, n: int, k: int) -> dict:
+    """K8's planner (``csrc/quant.cu::plan_conv``) for an M x N x K conv
+    (M = B*Ho*Wo, K = kh*kw*C): its tile width, tiles, 128-byte K steps
+    and split of K. Builds the library (nvcc), needs no card."""
+    plan = (ctypes.c_int * 6)()
+    _kernel("fovealseg_int8_conv_plan")(m, n, k, plan)
+    return dict(zip(("bn", "m_tiles", "n_tiles", "steps", "splits", "steps_per_split"), plan))
+
+
 # ------------------------------------------------------------ K6 -> K7 -> K8
 
 
@@ -288,6 +298,8 @@ _ARGTYPES = {
     "fovealseg_quantize_act": ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                                         ctypes.c_longlong, ctypes.c_int,
                                                         ctypes.c_void_p], ctypes.c_int),
+    "fovealseg_int8_conv_plan": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int)], None),
     "fovealseg_int8_conv2d": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
                               ctypes.c_int),
     "fovealseg_w8a8_workspace_bytes": ([ctypes.c_longlong], ctypes.c_longlong),

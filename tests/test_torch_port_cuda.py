@@ -994,7 +994,12 @@ def test_async_saver_with_card_tensors(dev, tmp_path):
 
 # (batch, cin, h, w, cout, kernel, stride, padding, dtype, bias): the CPU
 # tests' grid (tests/test_torch_port_quantize.py) at the served widths, a
-# ragged M and N with cin % 32 == 16, and C1's stride-4 class head
+# ragged M and N with cin % 32 == 16, and C1's stride-4 class head; then
+# each of K8's routes (csrc/quant.cu::plan_conv, tests/test_torch_port_quant_plan.py):
+# K split (M = 800 and 3,200) and not, C1's N = 240 in one tile, a ragged N
+# (130) in a 192-wide tile over a ragged M, C = 192 and 144 (128-byte K
+# chunks straddling two taps), K steps not divisible by the split, 16-byte
+# and scalar stores
 W8A8_CASES = [
     (8, 128, 40, 40, 128, 3, 1, 1, torch.float32, False),
     (8, 128, 40, 40, 256, 3, 2, 1, torch.bfloat16, True),
@@ -1008,6 +1013,15 @@ W8A8_CASES = [
     (8, 960, 80, 80, 512, 3, 4, 1, torch.float32, True),
     (8, 960, 80, 80, 512, 1, 4, 0, torch.bfloat16, True),
     (3, 144, 7, 9, 130, 3, 2, 1, torch.float32, True),
+    (8, 512, 10, 10, 512, 3, 1, 1, torch.bfloat16, True),  # M = 800: 4 splits of 9 steps
+    (8, 256, 20, 20, 256, 3, 1, 1, torch.bfloat16, False),  # M = 3,200: 2 splits
+    (8, 128, 40, 40, 256, 3, 2, 1, torch.float32, True),  # 2 splits of 5 and 4 steps
+    (8, 128, 20, 20, 512, 3, 2, 1, torch.bfloat16, True),  # 3 splits of 4, 4 and 1
+    (2, 192, 20, 20, 256, 3, 1, 1, torch.bfloat16, True),  # C = 192, split 4, 4, 4, 2
+    (8, 192, 80, 80, 192, 3, 1, 1, torch.float32, False),  # BN = 192, a K tail
+    (8, 128, 47, 47, 130, 3, 1, 1, torch.float32, True),  # BN = 192, N and M ragged
+    (4, 144, 30, 30, 256, 3, 1, 1, torch.bfloat16, False),  # C = 144, split 6 + 5, 16-row last tile
+    (8, 512, 10, 10, 128, 1, 1, 0, torch.float32, True),  # 7 tiles, 4 steps: no split
 ]
 
 
@@ -1050,6 +1064,36 @@ def test_w8a8_kernels_bit_equal_to_plain(dev, case):
     assert [f.launches for f in (quant.absmax_scale, quant.quantize_act,
                                  quant.int8_conv2d)] == [n + 2 for n in before]
     assert torch.equal(fused.view(bits), y.view(bits))
+
+
+@pytest.mark.parametrize("case", [(8, 512, 10, 10, 512, 3, 1, 1, torch.float32, True),
+                                  (3, 144, 7, 9, 130, 3, 2, 1, torch.bfloat16, False),
+                                  (8, 960, 80, 80, 240, 3, 1, 1, torch.bfloat16, True)],
+                         ids=["split4_f32", "split3_ragged_bf16", "c1_unsplit_bf16"])
+def test_w8a8_conv_repeats_bit_equal(dev, case):
+    """K8 twice on the same inputs, alone and inside the one-call W8A8 conv,
+    gives the same bits each time, split (a cluster of blocks adding their
+    partials through distributed shared memory) or not: no launch leaves
+    state behind for the next."""
+    from fovealseg_torch.models.layers import quantize_kernel
+    from fovealseg_torch.ops import quant
+
+    b, cin, h, w, cout, k, stride, padding, dt, bias = case
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.relu(torch.randn(b, cin, h, w, generator=g)).to(dt).to(dev)
+    codes, w_scale = quantize_kernel(torch.randn(cout, cin, k, k, generator=g) / (cin * k * k))
+    weight_q, w_scale = codes.permute(0, 2, 3, 1).contiguous().to(dev), w_scale.to(dev)
+    bb = torch.randn(cout, generator=g).to(dt).to(dev) if bias else None
+    s_x = quant.absmax_scale(x)
+    xq = quant.quantize_act(x, s_x)
+    runs = [quant.int8_conv2d(xq, weight_q, s_x, w_scale, bb, stride, padding, dt)
+            for _ in range(2)]
+    runs += [quant.w8a8_conv2d(x, weight_q, w_scale, bb, stride, padding) for _ in range(2)]
+    torch.cuda.synchronize()
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+    assert all(torch.equal(r.view(bits), runs[0].view(bits)) for r in runs[1:])
+    ref = quant.int8_conv2d_plain(xq, weight_q, s_x, w_scale, bb, stride, padding, dt)
+    assert torch.equal(runs[0].view(bits), ref.view(bits))
 
 
 def test_w8a8_wrappers_refuse_on_card(dev):
